@@ -27,6 +27,11 @@ enable_persistent_cache()
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips where there is none")
+
+
 @pytest.fixture
 def no_compile_cache():
     """Opt-out of the persistent cache for tests that compile giant
