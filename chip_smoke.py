@@ -1,16 +1,18 @@
-"""Smoke run of the PyTorch + CUDA port on one GPU: builds the commitment
-kernels, holds each against its plain PyTorch version, proves and verifies
-config 1 against the JAX package's golden transcript, then proves and
-verifies the 2^14-coefficient instance (BASELINE.json config 3).
+"""Smoke run of the PyTorch + CUDA port on one GPU: builds the kernels,
+holds each against its plain PyTorch version, proves and verifies config 1
+against the JAX package's golden transcript, proves and verifies the
+2^14-coefficient instance (BASELINE.json config 3), and runs the recursion
+flow (``cli -R``: prove, fold, prove and verify the folded instance) at
+config 1 against the JAX golden digests and at the 2^14 base.
 
 Usage (from the repository root, on a machine with one CUDA card):
     python3 chip_smoke.py
 
 Every phase raises on failure, so the script exits non-zero; without a
-CUDA device it exits non-zero before printing any result.  The last line
-of standard output is the result JSON; the line before it lists each
-kernel with its launches in the 2^14 run and its time beside the plain
-version's.  Imports nothing of JAX.
+CUDA device it exits non-zero before printing any result.  The line before
+the last lists each kernel with its launches in the 2^14 recursion run,
+its time beside the plain version's, a library call's and its bound; the
+last line of standard output is the result JSON.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -27,8 +29,24 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "labrador_tpu_torch" / "golden" / "config1.json"
+GOLDEN_R = ROOT / "labrador_tpu_torch" / "golden" / "config1_recursion.json"
 REAL = dict(n=16, r=16, kappa=256)       # BASELINE.json config 3
 TIMED_RUNS = 3
+POLY_PRODUCTS = 100_000                  # BASELINE.json config 2
+POLY_TAIL = 99_999                       # not a multiple of 4 (COEF_ROWS)
+POLY_SERVING = 65_536                    # bench.py's fixed-operand batch
+POLY_SERVING_TAIL = 65_531               # not a multiple of 8 (BHAT_ROWS)
+
+# Peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W): HBM3 at
+# 3.35 TB/s; int8 tensor-core operations at 1,979 T/s; int32 operations
+# outside the tensor cores at 132 SMs x 64 INT32 lanes x the 1.98 GHz boost
+# clock, one IMAD per lane per clock.
+HBM_BYTES_PER_S = 3.35e12
+INT8_TC_OPS_PER_S = 1979e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# int32 operations of one Threefry-2x32 block (20 rounds of add, rotate,
+# xor; 5 key injections of 3 adds), the least work per CRS entry
+THREEFRY_OPS = 20 * 3 + 5 * 3
 
 
 def log(msg: str) -> None:
@@ -47,6 +65,50 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def limbs(max_abs: int) -> int:
+    """8-bit limbs an int8 tensor-core product needs for |x| <= max_abs."""
+    return 1 if max_abs <= 127 else -(-max_abs.bit_length() // 8)
+
+
+class Work:
+    """What one call must do: bytes (each input read once, each output
+    written once), int32 operations that only the CUDA cores can do
+    (Threefry), and multiply-adds of small integers, each of which int8
+    tensor cores can do as limb_products limb products of two
+    operations."""
+
+    def __init__(self, nbytes: float, int32_ops: float, macs: float,
+                 limb_products: int):
+        self.nbytes, self.int32_ops = nbytes, int32_ops
+        self.macs, self.limb_products = macs, limb_products
+
+    def bound(self) -> tuple[float, str]:
+        """The least time (ms) the card could take: the larger of the bytes
+        over the memory rate and the operations over their peak rates
+        (Threefry on the CUDA cores, multiply-adds on int8 tensor cores)."""
+        t_bytes = self.nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = max(self.int32_ops / INT32_OPS_PER_S,
+                    2 * self.macs * self.limb_products / INT8_TC_OPS_PER_S
+                    ) * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                             "operations")
+
+    def cuda_core_ms(self) -> float:
+        """The same bound with the multiply-adds on the CUDA cores (one
+        int32 IMAD each), the design the kernels use today."""
+        return max(self.nbytes / HBM_BYTES_PER_S,
+                   (self.int32_ops + self.macs) / INT32_OPS_PER_S) * 1e3
+
+    def describe(self) -> str:
+        bound_ms, bound_by = self.bound()
+        return (f"bound {bound_ms:.4f} ms ({bound_by}; CUDA-core bound "
+                f"{self.cuda_core_ms():.4f} ms)")
+
+
+def _sync() -> None:
+    torch.cuda.synchronize()
 
 
 def phase_device() -> str:
@@ -74,78 +136,220 @@ def phase_build() -> None:
             log(f"  ptxas: {line.strip()}")
 
 
-def _kernel_cases(n: int, r: int, kappa: int, seed: int):
-    """(kernel module, label, kernel fn, plain fn) at one instance's shapes,
-    on inputs from a fixed numpy seed."""
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to("cuda")
+
+
+def _kernel_cases(p, seed: int):
+    """(kernel module, label, kernel fn, plain fn, Work) at the shapes of
+    instance ``p``, on inputs from a fixed numpy seed: random residues for
+    Ajtai, random centred digits for the u1 B-term and the C/D sums."""
     from labrador_tpu_torch.crs import CRS
     from labrador_tpu_torch.ops import ajtai_cuda, cd_cuda, u1_cuda
-    from labrador_tpu_torch.params import LabradorParams
     from labrador_tpu_torch.protocol import _tri_stream
 
-    p = LabradorParams(n=n, r=r, kappa_override=kappa)
     crs = CRS.create(p, seed=0xC0FFEE + seed)
     rng = np.random.default_rng(seed)
-    dev = torch.device("cuda")
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)
+    d = p.d
 
     def digits(base: int, shape):
-        return t(rng.integers(-(base // 2), base // 2 + 1, shape) % p.q)
+        return _t(rng.integers(-(base // 2), base // 2 + 1, shape) % p.q)
 
-    w = t(rng.integers(0, p.q, (p.r, p.n, p.d)))
+    def work(rows: int, L: int, nrhs: int, max_rhs: int) -> Work:
+        """One ring-stream contraction: digits in and result out; one
+        Threefry block per CRS entry (residues below q) and d multiply-adds
+        per entry and right-hand side (entries below max_rhs in size)."""
+        entries = rows * L * d
+        return Work(8 * d * nrhs * (L + rows), entries * THREEFRY_OPS,
+                    entries * d * nrhs, limbs(p.q - 1) * limbs(max_rhs))
+
+    w = _t(rng.integers(0, p.q, (p.r, p.n, p.d)))
     t_dig = digits(p.b_1, (p.t_1, p.r, p.kappa, p.d))
     g_str = _tri_stream(digits(p.b_2, (p.t_2, p.r, p.r, p.d)), p)
     h_str = _tri_stream(digits(p.b_1, (p.t_1, p.r, p.r, p.d)), p)
+    n_tri = p.r * (p.r + 1) // 2
     return [
         (ajtai_cuda, "ajtai r_eff=r",
          lambda: ajtai_cuda.ajtai_commit(crs, w),
-         lambda: ajtai_cuda.ajtai_commit_plain(crs, w)),
+         lambda: ajtai_cuda.ajtai_commit_plain(crs, w),
+         work(p.kappa, p.n, p.r, p.q - 1)),
         (ajtai_cuda, "ajtai r_eff=1",
          lambda: ajtai_cuda.ajtai_commit(crs, w[:1]),
-         lambda: ajtai_cuda.ajtai_commit_plain(crs, w[:1])),
+         lambda: ajtai_cuda.ajtai_commit_plain(crs, w[:1]),
+         work(p.kappa, p.n, 1, p.q - 1)),
         (u1_cuda, "u1 B-term",
          lambda: u1_cuda.u1_bterm(crs, t_dig),
-         lambda: u1_cuda.u1_bterm_plain(crs, t_dig)),
+         lambda: u1_cuda.u1_bterm_plain(crs, t_dig),
+         work(p.kappa_1, p.r * p.t_1 * p.kappa, 1, p.b_1 // 2)),
         (cd_cuda, "cd D-term (u2)",
          lambda: cd_cuda.cd_sum(crs, h_str, crs._off_d, p.t_1),
-         lambda: cd_cuda.cd_sum_plain(crs, h_str, crs._off_d, p.t_1)),
+         lambda: cd_cuda.cd_sum_plain(crs, h_str, crs._off_d, p.t_1),
+         work(p.kappa_2, n_tri * p.t_1, 1, p.b_1 // 2)),
         (cd_cuda, "cd C-term (u1)",
          lambda: cd_cuda.cd_sum(crs, g_str, crs._off_c, p.t_2),
-         lambda: cd_cuda.cd_sum_plain(crs, g_str, crs._off_c, p.t_2)),
+         lambda: cd_cuda.cd_sum_plain(crs, g_str, crs._off_c, p.t_2),
+         work(p.kappa_2, n_tri * p.t_2, 1, p.b_2 // 2)),
     ]
 
 
+def hold_kernels(p, label_size: str, stats: dict | None = None,
+                 plain_reps: int = 2) -> None:
+    """Kernels 2-4 against their plain versions at the shapes of instance
+    ``p``; bit-equality required.  Where ``stats`` is given, records each
+    kernel's error there, and the times and bound of its first case."""
+    for mod, label, kern, plain, work in _kernel_cases(p, seed=7):
+        got, want = kern(), plain()
+        _sync()
+        err = int(torch.max(torch.abs(got - want)))
+        if got.shape != want.shape or err != 0:
+            raise AssertionError(f"{label} at {label_size}: kernel != "
+                                 f"plain (max abs err {err})")
+        ms = cuda_ms(kern, 10)
+        plain_ms = cuda_ms(plain, plain_reps)
+        log(f"kernel {label:16s} {label_size:9s} {str(tuple(got.shape)):15s}"
+            f" bit-equal (tolerance 0)  kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  {work.describe()}")
+        if stats is None:
+            continue
+        st = stats.setdefault(mod.KERNEL.name, {"max_abs_err": 0})
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        if "ms" not in st:
+            bound_ms, bound_by = work.bound()
+            # no single PyTorch call expands the Threefry CRS and
+            # contracts it: library_ms stays null
+            st.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, library_ms=None)
+
+
 def phase_kernels() -> dict:
-    """Each kernel against its plain version at the config-1 and the 2^14
-    shapes; bit-equality required.  Returns per-kernel error and the times
-    of its first case at the 2^14 shapes (Ajtai at r_eff = r, the u1
-    B-term, the u2 D-term)."""
+    """Kernels 2-4 against their plain versions at the config-1 and the
+    2^14 shapes.  Returns per-kernel error and the times and bound of its
+    first case at the 2^14 shapes (Ajtai at r_eff = r, the u1 B-term, the
+    u2 D-term)."""
+    from labrador_tpu_torch.params import LabradorParams
+    hold_kernels(LabradorParams(n=2, r=2), "config1")
     stats: dict = {}
-    for label_size, shape in (("config1", dict(n=2, r=2, kappa=0)),
-                              ("2^14", REAL)):
-        for mod, label, kern, plain in _kernel_cases(**shape, seed=7):
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            err = int(torch.max(torch.abs(got - want)))
-            if got.shape != want.shape or err != 0:
-                raise AssertionError(f"{label} at {label_size}: kernel != "
-                                     f"plain (max abs err {err})")
-            ms = cuda_ms(kern, 10)
-            plain_ms = cuda_ms(plain, 2)
-            log(f"kernel {label:16s} {label_size:7s} {str(tuple(got.shape)):15s}"
-                f" bit-equal (tolerance 0)  kernel {ms:.4f} ms  plain "
-                f"{plain_ms:.4f} ms")
-            st = stats.setdefault(mod.KERNEL.name, {"max_abs_err": 0})
-            st["max_abs_err"] = max(st["max_abs_err"], err)
-            if label_size == "2^14" and "ms" not in st:
-                st["ms"], st["plain_ms"] = ms, plain_ms
+    hold_kernels(LabradorParams(n=REAL["n"], r=REAL["r"],
+                                kappa_override=REAL["kappa"]), "2^14", stats)
+    return stats
+
+
+def _negacyclic_conv1d(a: torch.Tensor, b: torch.Tensor):
+    """The yardstick of kernel 1: one grouped float64 F.conv1d computing
+    the exact integer negacyclic products a[i] (*) b[i] (before the
+    reduction mod q); returns the call and a check of its result."""
+    n, d = a.shape
+    x = torch.cat([-b, b], dim=1).to(torch.float64).reshape(1, n, 2 * d)
+    wgt = torch.flip(a, dims=(1,)).to(torch.float64).reshape(n, 1, d)
+
+    def call():
+        return torch.nn.functional.conv1d(x, wgt, groups=n)
+
+    def result(q: int) -> torch.Tensor:
+        return torch.remainder(call()[0, :, 1:d + 1].to(torch.int64), q)
+
+    return call, result
+
+
+def _rows(x: torch.Tensor) -> int:
+    return x.numel() // x.shape[-1]
+
+
+def phase_polymul() -> dict:
+    """Kernel 1 against its plain versions on the card: BASELINE.json
+    config 2 (10^5 products, coefficient operands) and 99,999 products (a
+    partial final block), the fixed-operand serving shape (65,536 products
+    against bhat (P, 1, 64)), random canonical per-prime residues over
+    65,531 rows (Garner beyond the image of the forward transform, and a
+    partial final block), and the ring products of the 2^14 -R path
+    (FoldedState.phi_alpha_modq and fold at n = r = 16).  Bit-equality
+    required.  Returns the config-2 case's numbers for the kernels line."""
+    from labrador_tpu_torch.ops import ntt, polymul_cuda
+    from labrador_tpu_torch.params import LabradorParams
+
+    p = LabradorParams(n=2, r=2)
+    plan = ntt.plan_for(p)
+    P, q, d = plan.n_primes, p.q, p.d
+    rng = np.random.default_rng(2)
+    a = _t(rng.integers(0, q, (POLY_PRODUCTS, d)))
+    b = _t(rng.integers(0, q, (POLY_PRODUCTS, d)))
+    a_s = a[:POLY_SERVING].contiguous()
+    a_t, b_t = a[:POLY_TAIL].contiguous(), b[:POLY_TAIL].contiguous()
+    a_st = a[:POLY_SERVING_TAIL].contiguous()
+    bhat_fixed = ntt.ntt_fwd(b[:1], plan)                     # (P, 1, d)
+    pv = np.asarray(plan.primes).reshape(P, 1, 1)
+    bhat_rand = _t(rng.integers(0, 1 << 62, (P, POLY_SERVING_TAIL, d)) % pv)
+    n0 = r0 = REAL["n"]
+    vec = _t(rng.integers(0, q, (d,)))                         # a16..a18
+    cphi = _t(rng.integers(0, q, (n0, d)))
+    cc = _t(rng.integers(0, q, (r0, r0, d)))
+    c = _t(rng.integers(0, q, (r0, d)))
+    coef = polymul_cuda.negacyclic_polymul
+    coef_plain = polymul_cuda.negacyclic_polymul_plain
+    bh = polymul_cuda.negacyclic_polymul_bhat
+    bh_plain = polymul_cuda.negacyclic_polymul_bhat_plain
+    lp_q = limbs(q - 1) ** 2
+    lp_p = limbs(max(plan.primes) - 1) ** 2
+
+    def coef_case(label, x, y):
+        n_out = torch.Size(torch.broadcast_shapes(x.shape, y.shape)).numel() \
+            // d
+        return (label, n_out, lambda: coef(x, y, plan),
+                lambda: coef_plain(x, y, plan),
+                Work(8 * d * (_rows(x) + _rows(y) + n_out), 0,
+                     n_out * d * d, lp_q))
+
+    def bhat_case(label, x, bhat):
+        n = _rows(x)
+        return (label, n, lambda: bh(x, bhat, plan),
+                lambda: bh_plain(x, bhat, plan),
+                Work(8 * d * (2 * n + _rows(bhat)), 0, n * P * 2 * d * d,
+                     lp_p))
+
+    cases = [
+        coef_case("config 2: 10^5 products", a, b),
+        coef_case(f"config 2 tail: {POLY_TAIL} products", a_t, b_t),
+        bhat_case("serving: bhat (P, 1, 64)", a_s, bhat_fixed),
+        bhat_case(f"bhat random residues, {POLY_SERVING_TAIL} rows", a_st,
+                  bhat_rand),
+        coef_case("-R a17 * cphi: (d,) x (16, d)", vec, cphi),
+        coef_case("-R a16 * cc: (d,) x (16, 16, d)", vec, cc),
+        coef_case("-R fold cc: (16, 1, d) x (1, 16, d)", c[:, None],
+                  c[None, :]),
+    ]
+    stats: dict = {"max_abs_err": 0}
+    for label, count, kern, plain, work in cases:
+        got, want = kern(), plain()
+        _sync()
+        err = int(torch.max(torch.abs(got - want)))
+        if got.shape != want.shape or err != 0:
+            raise AssertionError(f"polymul {label}: kernel != plain (max abs "
+                                 f"err {err})")
+        stats["max_abs_err"] = max(stats["max_abs_err"], err)
+        ms = cuda_ms(kern, 20)
+        plain_ms = cuda_ms(plain, 3)
+        log(f"kernel polymul {label:38s} {str(tuple(got.shape)):14s} "
+            f"bit-equal (tolerance 0)  kernel {ms:.4f} ms = "
+            f"{count / ms * 1e3:.4g} products/s  plain {plain_ms:.4f} ms  "
+            f"{work.describe()}")
+        if "ms" not in stats:
+            bound_ms, bound_by = work.bound()
+            stats.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+    call, result = _negacyclic_conv1d(a, b)
+    if not torch.equal(result(q), coef(a, b, plan)):
+        raise AssertionError("the conv1d yardstick disagrees with kernel 1")
+    stats["library_ms"] = cuda_ms(call, 5)
+    log(f"kernel polymul config 2 yardstick: one float64 grouped conv1d "
+        f"(exact integer products, no mod q) {stats['library_ms']:.4f} ms")
     return stats
 
 
 def _kernels():
-    from labrador_tpu_torch.ops import ajtai_cuda, cd_cuda, u1_cuda
-    return [ajtai_cuda.KERNEL, u1_cuda.KERNEL, cd_cuda.KERNEL]
+    from labrador_tpu_torch.ops import (ajtai_cuda, cd_cuda, polymul_cuda,
+                                        u1_cuda)
+    return [polymul_cuda.KERNEL, ajtai_cuda.KERNEL, u1_cuda.KERNEL,
+            cd_cuda.KERNEL]
 
 
 def _reset_counts() -> None:
@@ -157,10 +361,21 @@ def _counts() -> dict:
     return {k.name: k.launches for k in _kernels()}
 
 
+def _require_launched(counts: dict, names, where: str) -> None:
+    missing = [n for n in names if not counts[n]]
+    if missing:
+        raise AssertionError(f"{where}: kernels {missing} not launched "
+                             f"({counts})")
+
+
+COMMITMENT_KERNELS = ("ajtai_commit", "u1_bterm", "cd_sum")
+ALL_KERNELS = ("negacyclic_polymul",) + COMMITMENT_KERNELS
+
+
 def phase_config1() -> None:
     """Config 1 on cuda: transcript digest, sizes and report equal the JAX
-    package's golden values; tampered z fails check 15; every kernel
-    launches in prove and in verify."""
+    package's golden values; tampered z fails check 15; every commitment
+    kernel launches in prove and in verify."""
     from labrador_tpu_torch import keys, prover, structs, verifier
     from labrador_tpu_torch.cli import run_flow
 
@@ -193,10 +408,9 @@ def phase_config1() -> None:
     _reset_counts()
     verifier.verify_report(p, res.state, proof, res.crs)
     in_verify = _counts()
-    torch.cuda.synchronize()
-    if not all(in_prove.values()) or not all(in_verify.values()):
-        raise AssertionError(f"kernel not launched: prove {in_prove}, "
-                             f"verify {in_verify}")
+    _sync()
+    _require_launched(in_prove, COMMITMENT_KERNELS, "config-1 prove")
+    _require_launched(in_verify, COMMITMENT_KERNELS, "config-1 verify")
     log(f"config1: transcript sha256 {digest} == JAX golden; size "
         f"{sizes[0]} B (fs {sizes[1]} B) == golden; all checks true; "
         f"tampered z rejected (c15)")
@@ -218,15 +432,15 @@ def _timed_runs(shape: dict) -> tuple[float, float]:
             statistics.median(r.verify_s for r in runs))
 
 
-def phase_real() -> dict:
-    """The 2^14 instance end to end; returns the launches of its first
-    (counted) run."""
+def phase_real() -> None:
+    """The 2^14 instance end to end; its commitment kernels must launch."""
     from labrador_tpu_torch import structs
     from labrador_tpu_torch.cli import run_flow
 
     _reset_counts()
     res = run_flow(**REAL, seed=42, device="cuda")
     launches = _counts()
+    _require_launched(launches, COMMITMENT_KERNELS, "2^14 prove + verify")
     p = res.params
     if not (bool(res.proof.jl_ok) and bool(res.proof.b_pp_ok)):
         raise AssertionError("2^14 prover self-checks failed")
@@ -247,24 +461,215 @@ def phase_real() -> dict:
         f"sync); first run "
         f"prove {res.prove_s * 1e3:.2f} ms verify {res.verify_s * 1e3:.2f} ms")
     log(f"2^14: proof {size} B = {size / 1024:.2f} KB (fs metric {size_fs} B)")
+
+
+def _check_folded(res, where: str) -> None:
+    f = res.folded
+    if not res.report["all"] or f is None:
+        raise AssertionError(f"{where}: base proof failed: {res.report}")
+    if f.residual != 0:
+        raise AssertionError(f"{where}: folded residual {f.residual} != 0")
+    if not (bool(f.proof.jl_ok) and bool(f.proof.b_pp_ok)):
+        raise AssertionError(f"{where}: folded prover self-checks failed")
+    if not all(f.report.values()):
+        failed = [k for k, v in f.report.items() if not v]
+        raise AssertionError(f"{where}: folded verification failed: {failed}")
+
+
+def phase_recursion_config1() -> None:
+    """``cli -R`` at config 1: base and folded transcript SHA-256, the
+    folded params, fs size and report equal the JAX golden file; the
+    folded residual is 0 and a tampered folded witness gives a nonzero
+    one; kernel 1 launches in the fold, the folded prove and the folded
+    verify, kernels 2-4 in the folded prove."""
+    from labrador_tpu_torch import keys, prover, recursion, structs, verifier
+    from labrador_tpu_torch.cli import FOLDED_CRS_XOR, run_flow
+    from labrador_tpu_torch.crs import CRS
+
+    golden = json.loads(GOLDEN_R.read_text())
+    cfg, gb, gf = golden["config"], golden["base"], golden["folded"]
+    _reset_counts()
+    res = run_flow(cfg["n"], cfg["r"], cfg["kappa"], cfg["seed"], "cuda",
+                   recursion=True)
+    launches = _counts()
+    _require_launched(launches, ALL_KERNELS, "config-1 -R")
+    _check_folded(res, "config-1 -R")
+    f = res.folded
+    p, p2 = res.params, f.params
+    got = {
+        "base sha256": structs.transcript_sha256(res.proof, p.q),
+        "folded sha256": structs.transcript_sha256(f.proof, p2.q),
+        "folded fs size": structs.transcript_size_in_bytes(f.proof, p2.q,
+                                                           fs=True),
+        "folded shape": [p2.n, p2.r, p2.k_count, p2.kappa, p2.beta_override],
+        "base report": res.report, "folded report": f.report,
+    }
+    want = {
+        "base sha256": gb["transcript_sha256"],
+        "folded sha256": gf["transcript_sha256"],
+        "folded fs size": gf["transcript_size_in_bytes_fs"],
+        "folded shape": [gf[k] for k in ("n", "r", "k_count", "kappa",
+                                         "beta_override")],
+        "base report": gb["verify_report"], "folded report": gf["verify_report"],
+    }
+    for key in got:
+        if got[key] != want[key]:
+            raise AssertionError(f"config-1 -R {key}: {got[key]} != JAX "
+                                 f"golden {want[key]}")
+    w_bad = f.witness.clone()
+    w_bad[0, 0, 0] = (w_bad[0, 0, 0] + 1) % p2.q
+    if recursion.folded_residual(f.state, w_bad, p2) == 0:
+        raise AssertionError("config-1 -R: tampered folded witness accepted")
+
+    # each step alone, counted
+    _reset_counts()
+    p2b, w2, s2, _ = recursion.fold(p, res.state, res.proof, res.crs)
+    in_fold = _counts()
+    crs2 = CRS.create(p2b, seed=cfg["seed"] ^ FOLDED_CRS_XOR)
+    _reset_counts()
+    proof2 = prover.prove(p2b, w2, s2, crs2, keys.fold_in(res.verifier_key, 1),
+                          decomp_mode="exact")
+    in_prove = _counts()
+    _reset_counts()
+    verifier.verify_report(p2b, s2, proof2, crs2, decomp_mode="exact")
+    in_verify = _counts()
+    _sync()
+    for counts, where in ((in_fold, "fold"), (in_prove, "folded prove"),
+                          (in_verify, "folded verify")):
+        _require_launched(counts, ("negacyclic_polymul",),
+                          f"config-1 -R {where}")
+    _require_launched(in_prove, COMMITMENT_KERNELS, "config-1 -R folded prove")
+    log(f"config1 -R: base sha256 {got['base sha256']}, folded sha256 "
+        f"{got['folded sha256']} == JAX golden; folded n'={p2.n} r'={p2.r} "
+        f"k'={p2.k_count}, fs size {got['folded fs size']} B == golden; "
+        f"residual 0, tampered witness rejected; all checks true")
+    log(f"config1 -R: launches in the flow {launches}; fold {in_fold}, "
+        f"folded prove {in_prove}, folded verify {in_verify}")
+    log(f"config1 -R: prove {res.prove_s * 1e3:.2f} ms, verify "
+        f"{res.verify_s * 1e3:.2f} ms, fold {f.fold_s * 1e3:.2f} ms, folded "
+        f"prove {f.prove_s * 1e3:.2f} ms, folded verify "
+        f"{f.verify_s * 1e3:.2f} ms (first run, host clock after sync)")
+
+
+def phase_recursion_real(stats: dict) -> dict:
+    """``cli -R`` at the 2^14 base (n = r = 16, kappa = 256): fold, prove
+    and verify with every check true; then kernels 2-4 held bit-equal to
+    their plain versions at the folded instance's shapes (r' = 180,
+    n' = 175, kappa' = 16, 16,290 C/D pairs) on random inputs, their
+    errors merged into ``stats``.  Returns the launches of the run, the
+    kernels line's counts."""
+    from labrador_tpu_torch import recursion, structs
+    from labrador_tpu_torch.cli import run_flow
+    from labrador_tpu_torch.ops import ntt
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    res = run_flow(**REAL, seed=42, device="cuda", recursion=True)
+    launches = _counts()
+    _require_launched(launches, ALL_KERNELS, "2^14 -R")
+    _check_folded(res, "2^14 -R")
+    f = res.folded
+    p, p2 = res.params, f.params
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sizes = (structs.transcript_size_in_bytes(res.proof, p.q),
+             structs.transcript_size_in_bytes(res.proof, p.q, fs=True),
+             structs.transcript_size_in_bytes(f.proof, p2.q, fs=True))
+    log(f"2^14 -R: all checks true; folded n'={p2.n} r'={p2.r} "
+        f"k'={p2.k_count} beta'={p2.beta_override}; launches {launches}")
+    log(f"2^14 -R: prove {res.prove_s * 1e3:.2f} ms, verify "
+        f"{res.verify_s * 1e3:.2f} ms, fold {f.fold_s * 1e3:.2f} ms, folded "
+        f"prove {f.prove_s * 1e3:.2f} ms, folded verify "
+        f"{f.verify_s * 1e3:.2f} ms (host clock after sync); peak device "
+        f"memory {peak_gb:.2f} GB")
+    log(f"2^14 -R: proof base {sizes[0]} B (fs {sizes[1]} B) -> folded fs "
+        f"{sizes[2]} B (the folded interactive size, 516 M JL entries of "
+        f"bincode, is not computed)")
+    # the folded witness is all zero (beta' = 1), so the run above cannot
+    # tell a kernel from one that writes zeros: random inputs here
+    hold_kernels(p2, "2^14 -R'", stats, plain_reps=1)
+
+    # the base-CRS streams of one phi_alpha_modq, timed alone
+    st = f.state
+    p0 = st.layout.params
+    plan = ntt.plan_for(p0)
+    rng = np.random.default_rng(3)
+    alpha = _t(rng.integers(0, p0.q, (p2.k_count, p0.d)))
+    aA, aB, aC = st._alpha_split(alpha)[:3]
+    steps = (
+        ("phi_alpha_modq", lambda: st.phi_alpha_modq(alpha)),
+        ("_alpha_contract_a", lambda: recursion._alpha_contract_a(
+            st.base_crs, ntt.ntt_fwd(aA, plan), p0, plan)),
+        ("_alpha_contract_b", lambda: recursion._alpha_contract_b(
+            st.base_crs, ntt.ntt_fwd(aB, plan), p0, plan)),
+        ("_alpha_contract_cd C+D", lambda: (
+            recursion._alpha_contract_cd(st.base_crs, st.base_crs._off_c,
+                                         ntt.ntt_fwd(aB, plan), p0.t_2, p0,
+                                         plan),
+            recursion._alpha_contract_cd(st.base_crs, st.base_crs._off_d,
+                                         ntt.ntt_fwd(aC, plan), p0.t_1, p0,
+                                         plan))),
+    )
+    parts = []
+    for name, fn in steps:
+        _sync()
+        t0 = time.perf_counter()
+        fn()
+        _sync()
+        parts.append(f"{name} {(time.perf_counter() - t0) * 1e3:.2f} ms")
+    log(f"2^14 -R streams (host clock after sync): {', '.join(parts)}")
+    _profile_folded_prove(res)
     return launches
+
+
+def _profile_folded_prove(res) -> None:
+    """A second folded prove at 2^14 under cProfile: host-clock cumulative
+    seconds of the phases and of the steps that take most of them (device
+    work shows up where the host waits for it)."""
+    import cProfile
+    import pstats
+
+    from labrador_tpu_torch import keys, prover
+    f = res.folded
+    prof = cProfile.Profile()
+    _sync()
+    t0 = time.perf_counter()
+    prof.enable()
+    prover.prove(f.params, f.witness, f.state, f.crs,
+                 keys.fold_in(res.verifier_key, 1), decomp_mode="exact")
+    _sync()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    cum = {}
+    for (_, _, fn), row in pstats.Stats(prof).stats.items():
+        cum[fn] = max(cum.get(fn, 0.0), row[3])
+    names = ("prove_phase1", "prove_phase2a", "prove_phase2b",
+             "prove_phase3", "sample_challenge", "sample_jl_matrix",
+             "jl_project", "sigma_inv_pi", "aggregate_phi_pp",
+             "phi_alpha_modq", "_alpha_contract_b", "ajtai_commit",
+             "u1_from_digits", "u2_from_digits", "gram_hat")
+    log(f"2^14 -R folded prove under cProfile: {wall * 1e3:.2f} ms wall; "
+        "cumulative s: " + ", ".join(f"{n} {cum.get(n, 0.0):.3f}"
+                                     for n in names))
 
 
 def main() -> int:
     phase_device()
     phase_build()
     stats = phase_kernels()
+    stats["negacyclic_polymul"] = phase_polymul()
     phase_config1()
-    launches = phase_real()
+    phase_real()
+    phase_recursion_config1()
+    launches = phase_recursion_real(stats)
     rows = []
     for k in _kernels():
         st = stats[k.name]
-        if not launches[k.name]:
-            raise AssertionError(f"{k.name} never launched on the main path")
         rows.append({"name": k.name, "route": "cuda", "source": k.source,
                      "replaces": k.replaces, "launches": launches[k.name],
                      "max_abs_err": st["max_abs_err"], "ms": st["ms"],
-                     "plain_ms": st["plain_ms"]})
+                     "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+                     "bound_by": st["bound_by"],
+                     "library_ms": st["library_ms"]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,10 +4,13 @@
 Usage:
     python -m labrador_tpu_torch.cli [--verbose] [--device {cuda,cpu}]
                                      [--n N] [--r R] [--kappa K] [--seed S]
+                                     [-R]
 
-``--device cuda`` (the default) runs the commitments on the CUDA kernels
-and fails if no card is present; ``--device cpu`` runs their plain PyTorch
-versions.  Same seeds give the same transcript as the JAX package.
+``--device cuda`` (the default) runs the kernels and fails if no card is
+present; ``--device cpu`` runs their plain PyTorch versions.  ``-R`` proves
+with exact digits, folds the proof into a recursive instance
+(``recursion.fold``) and proves and verifies that too, as the JAX CLI
+does.  Same seeds give the same transcripts as the JAX package.
 """
 
 from __future__ import annotations
@@ -18,20 +21,36 @@ from dataclasses import dataclass
 
 import torch
 
-from . import keys, prover, sampling, structs, verifier
+from . import keys, prover, recursion, sampling, structs, verifier
 from .crs import CRS
 from .params import LabradorParams
 
-# the JAX CLI's CRS seed derivation from --seed
+# the JAX CLI's CRS seed derivations from --seed (base, folded instance)
 CRS_SEED_MULT = 0x9E3779B97F4A7C15
+FOLDED_CRS_XOR = 0xF01D
 
 _NOT_PORTED = {
     "fs": "Fiat-Shamir mode (--fs) belongs to the FS slice",
     "big_q": "--big-q belongs to the big-q slice",
-    "recursion": "recursion (-R) belongs to the recursion slice",
     "phases": "--phases belongs to the checkpoint slice",
     "ckpt": "--ckpt belongs to the checkpoint slice",
 }
+
+
+@dataclass
+class FoldResult:
+    """The folded instance of ``-R``: its proof, report and step times."""
+
+    params: LabradorParams
+    witness: torch.Tensor
+    state: recursion.FoldedState
+    crs: CRS
+    proof: structs.Transcript
+    report: dict
+    residual: int
+    fold_s: float
+    prove_s: float
+    verify_s: float
 
 
 @dataclass
@@ -44,6 +63,8 @@ class FlowResult:
     report: dict
     prove_s: float
     verify_s: float
+    verifier_key: keys.Key
+    folded: FoldResult | None = None
 
 
 def print_constants(p: LabradorParams) -> None:
@@ -64,12 +85,16 @@ def _sync(device: torch.device) -> None:
 
 
 def run_flow(n: int = 2, r: int = 2, kappa: int = 0, seed: int = 42,
-             device="cuda", verbose: bool = False) -> FlowResult:
-    """Witness, CRS, state, prove, verify_report — the CLI's flow."""
+             device="cuda", verbose: bool = False,
+             recursion: bool = False) -> FlowResult:
+    """Witness, CRS, state, prove, verify_report — the CLI's flow; with
+    ``recursion`` (exact digits) also ``fold_flow`` on the proof."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available")
-    p = LabradorParams(n=n, r=r, kappa_override=kappa)
+    p = LabradorParams(n=n, r=r, kappa_override=kappa,
+                       exact_digits=recursion)
+    decomp_mode = "exact" if recursion else "reference"
     if verbose:
         print("Welcome to the LaBRADOR Proof System (PyTorch + CUDA port)!")
         print("=====================================\n")
@@ -84,13 +109,42 @@ def run_flow(n: int = 2, r: int = 2, kappa: int = 0, seed: int = 42,
         print("Generating proof..")
     _sync(device)
     t0 = time.perf_counter()
-    proof = prover.prove(p, witness, state, crs, kv)
+    proof = prover.prove(p, witness, state, crs, kv, decomp_mode)
     _sync(device)
     t1 = time.perf_counter()
-    report = verifier.verify_report(p, state, proof, crs)
+    report = verifier.verify_report(p, state, proof, crs, decomp_mode)
     _sync(device)
     t2 = time.perf_counter()
-    return FlowResult(p, witness, state, crs, proof, report, t1 - t0, t2 - t1)
+    res = FlowResult(p, witness, state, crs, proof, report, t1 - t0,
+                     t2 - t1, kv)
+    if recursion and report["all"]:
+        res.folded = fold_flow(res, seed)
+    return res
+
+
+def fold_flow(base: FlowResult, seed: int) -> FoldResult:
+    """``-R`` of the JAX CLI: fold the base proof, check the folded
+    relation, then prove and verify the folded instance with its own CRS
+    and the verifier key fold_in(kv, 1)."""
+    device = base.witness.device
+    _sync(device)
+    t0 = time.perf_counter()
+    p2, w2, s2, _ = recursion.fold(base.params, base.state, base.proof,
+                                   base.crs)
+    residual = recursion.folded_residual(s2, w2, p2)
+    _sync(device)
+    t1 = time.perf_counter()
+    crs2 = CRS.create(p2, seed=seed ^ FOLDED_CRS_XOR)
+    proof2 = prover.prove(p2, w2, s2, crs2, keys.fold_in(base.verifier_key, 1),
+                          decomp_mode="exact")
+    _sync(device)
+    t2 = time.perf_counter()
+    report2 = verifier.verify_report(p2, s2, proof2, crs2,
+                                     decomp_mode="exact")
+    _sync(device)
+    t3 = time.perf_counter()
+    return FoldResult(p2, w2, s2, crs2, proof2, report2, residual, t1 - t0,
+                      t2 - t1, t3 - t2)
 
 
 def main(argv=None) -> int:
@@ -105,7 +159,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--fs", action="store_true")
     ap.add_argument("--big-q", action="store_true")
-    ap.add_argument("-R", "--recursion", action="store_true")
+    ap.add_argument("-R", "--recursion", action="store_true",
+                    help="fold the proof into a recursive instance and "
+                         "prove+verify that too")
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--ckpt", type=str, default="")
     args = ap.parse_args(argv)
@@ -114,7 +170,7 @@ def main(argv=None) -> int:
             ap.error(f"not yet ported: {why}")
 
     res = run_flow(args.n, args.r, args.kappa, args.seed, args.device,
-                   args.verbose)
+                   args.verbose, args.recursion)
     proof, p = res.proof, res.params
     if not bool(proof.jl_ok):
         print("Error: JL projection failed after max retries")
@@ -132,6 +188,33 @@ def main(argv=None) -> int:
         size = structs.transcript_size_in_bytes(proof, p.q)
         print(f"Size of proof: {size / 1024:.2f} KB")
         print(f"prove: {res.prove_s:.3f}s  verify: {res.verify_s:.3f}s")
+    if args.recursion:
+        return _report_folded(res, args.verbose)
+    return 0
+
+
+def _report_folded(res: FlowResult, verbose: bool) -> int:
+    f = res.folded
+    if f.residual != 0:
+        print("Error: folded relation does not hold")
+        return 1
+    if not (bool(f.proof.jl_ok) and bool(f.proof.b_pp_ok)):
+        print("Error: folded prover self-checks failed")
+        return 1
+    if not f.report["all"]:
+        failed = [k for k, v in f.report.items() if not v]
+        print(f"Error: recursive proof failed verification: {failed}")
+        return 1
+    if verbose:
+        print("Folding proof into a recursive instance (structured)..")
+        p, p2 = res.params, f.params
+        size = structs.transcript_size_in_bytes(res.proof, p.q)
+        size2 = structs.transcript_size_in_bytes(f.proof, p2.q)
+        print(f"Recursive instance: n'={p2.n} r'={p2.r} k'={p2.k_count} "
+              f"(folded in {f.fold_s + f.prove_s + f.verify_s:.2f}s)")
+        print(f"Proof size: base {size / 1024:.2f} KB -> folded "
+              f"{size2 / 1024:.2f} KB")
+        print("Success: recursive proof verified!")
     return 0
 
 

@@ -86,31 +86,51 @@ class CRS:
 
     # -- fetchers ------------------------------------------------------------
     def a_rows(self, row0: int = 0, nrows: int | None = None,
-               device=None) -> torch.Tensor:
+               device="cuda") -> torch.Tensor:
         """(nrows, n, d) block of A (offset row * n * d)."""
         p = self.params
         nrows = p.kappa if nrows is None else nrows
         return self._expand(row0 * p.n * p.d, (nrows, p.n, p.d), device)
 
     def b_rows(self, i: int, k: int, row0: int = 0, nrows: int | None = None,
-               device=None) -> torch.Tensor:
+               device="cuda") -> torch.Tensor:
         """(nrows, kappa, d) block of B_ik (rows stride kappa * d)."""
         p = self.params
         nrows = p.kappa_1 if nrows is None else nrows
         return self._expand(self._b_start(i, k, row0), (nrows, p.kappa, p.d),
                             device)
 
-    def c_vec(self, i: int, j: int, k: int, device=None) -> torch.Tensor:
+    def a_rows_dyn(self, row0: int, nrows: int,
+                   device="cuda") -> torch.Tensor:
+        """(nrows, n, d) block of A from row0 (the JAX package's traced-
+        offset fetcher; here the same tile as ``a_rows``)."""
+        p = self.params
+        return self._expand_dyn(0, row0, p.n * p.d, (nrows, p.n, p.d),
+                                (p.n * p.d, p.d, 1), device=device)
+
+    def b_mat_dyn(self, m: int, col0: int = 0, ncols: int | None = None,
+                  device="cuda") -> torch.Tensor:
+        """(kappa_1, ncols, d) column block of the m-th B matrix,
+        m = i * t_1 + k (offset linear in m with the kappa_1 * kappa
+        stride quirk), rows strided kappa * d."""
+        p = self.params
+        ncols = p.kappa if ncols is None else ncols
+        return self._expand_dyn(self._off_b, m, p.kappa_1 * p.kappa,
+                                (p.kappa_1, ncols, p.d),
+                                (p.kappa * p.d, p.d, 1), idx1=col0,
+                                stride1=p.d, device=device)
+
+    def c_vec(self, i: int, j: int, k: int, device="cuda") -> torch.Tensor:
         p = self.params
         return self._expand(self._c_start(i, j, k), (p.kappa_2, p.d), device)
 
-    def d_vec(self, i: int, j: int, k: int, device=None) -> torch.Tensor:
+    def d_vec(self, i: int, j: int, k: int, device="cuda") -> torch.Tensor:
         p = self.params
         return self._expand(self._d_start(i, j, k), (p.kappa_2, p.d), device)
 
     # -- expansion ------------------------------------------------------------
     def _expand(self, start: int, shape: tuple[int, ...],
-                device=None) -> torch.Tensor:
+                device="cuda") -> torch.Tensor:
         """Contiguous tile of ``shape`` starting at offset ``start``."""
         offs = torch.arange(math.prod(shape), dtype=torch.int64,
                             device=device) + start
@@ -119,7 +139,7 @@ class CRS:
     def _expand_dyn(self, base: int, idx0: int, stride0: int,
                     shape: tuple[int, ...], strides: tuple[int, ...],
                     idx1: int | None = None, stride1: int = 0,
-                    device=None) -> torch.Tensor:
+                    device="cuda") -> torch.Tensor:
         """Strided tile: offset[i0, i1, ...] = base + idx0*stride0
         [+ idx1*stride1] + sum_k i_k * strides[k]."""
         start = base + idx0 * stride0

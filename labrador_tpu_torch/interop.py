@@ -1,8 +1,9 @@
 """Carry the JAX package's objects into the port, as numpy arrays.
 
 The caller converts with ``np.asarray`` (and ``jax.random.key_data`` for a
-key); these functions build the port's objects from the arrays, so both
-packages can be given the same instance.  The port never sees a JAX type.
+key, plain ints for params and a recursion layout); these functions build
+the port's objects from them, so both packages can be given the same
+instance, a folded one included.  The port never sees a JAX type.
 """
 
 from __future__ import annotations
@@ -15,10 +16,11 @@ import torch
 from .crs import CRS
 from .keys import Key
 from .params import LabradorParams
+from .recursion import FoldedState, RecursionLayout
 from .structs import State, Transcript
 
 
-def tensor(arr, device=None) -> torch.Tensor:
+def tensor(arr, device="cuda") -> torch.Tensor:
     """numpy array -> tensor (a copy): integer residues as int64, int8 and
     bool kept."""
     a = np.asarray(arr)
@@ -39,13 +41,39 @@ def crs_from_words(words, params: LabradorParams) -> CRS:
     return CRS(key=(int(w[0]), int(w[1])), params=params)
 
 
-def state_from_numpy(fields: dict, device=None) -> State:
+def state_from_numpy(fields: dict, device="cuda") -> State:
     """A State from {field name: array} of a JAX ``State``."""
     return State(**{f.name: tensor(fields[f.name], device)
                     for f in dataclasses.fields(State)})
 
 
-def transcript_from_numpy(fields: dict, device=None) -> Transcript:
+def transcript_from_numpy(fields: dict, device="cuda") -> Transcript:
     """A Transcript from {field name: array} of a JAX ``Transcript``."""
     return Transcript(**{f.name: tensor(fields[f.name], device)
                          for f in dataclasses.fields(Transcript)})
+
+
+def params_from_fields(fields: dict) -> LabradorParams:
+    """LabradorParams from the constructor fields of a JAX LabradorParams
+    (n, r, q, d, k_count, l_count, q_start and the three overrides)."""
+    return LabradorParams(**{f.name: fields[f.name]
+                             for f in dataclasses.fields(LabradorParams)
+                             if f.init})
+
+
+def layout_from_fields(fields: dict, params: LabradorParams) -> RecursionLayout:
+    """A RecursionLayout from the integer fields of a JAX one, over the
+    port's base params."""
+    return RecursionLayout(params=params, **{
+        f.name: int(fields[f.name]) for f in dataclasses.fields(RecursionLayout)
+        if f.name != "params"})
+
+
+def folded_state_from_numpy(fields: dict, layout: RecursionLayout,
+                            base_crs: CRS, device="cuda") -> FoldedState:
+    """A FoldedState from {field name: array} of a JAX FoldedState, its
+    layout and the base instance's CRS."""
+    return FoldedState(base_crs=base_crs, layout=layout, **{
+        f.name: tensor(fields[f.name], device)
+        for f in dataclasses.fields(FoldedState)
+        if f.name not in ("base_crs", "layout")})

@@ -61,7 +61,7 @@ def fold_in(k: Key, data: int) -> Key:
     return Key(*_block(k, 0, int(data) & M32))
 
 
-def bits(k: Key, shape, device=None) -> torch.Tensor:
+def bits(k: Key, shape, device="cuda") -> torch.Tensor:
     """``jax.random.bits(k, shape, uint32)`` as int64 values in [0, 2**32)."""
     shape = tuple(shape)
     idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
@@ -69,7 +69,7 @@ def bits(k: Key, shape, device=None) -> torch.Tensor:
     return (x0 ^ x1).reshape(shape)
 
 
-def bernoulli(k: Key, p: float, shape, device=None) -> torch.Tensor:
+def bernoulli(k: Key, p: float, shape, device="cuda") -> torch.Tensor:
     """``jax.random.bernoulli(k, p, shape)`` at float32: the uniform is the
     top 23 bits over 2**23, exactly representable, compared with
     float32(p)."""

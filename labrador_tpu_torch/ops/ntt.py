@@ -183,13 +183,6 @@ def eval_add(a: torch.Tensor, b: torch.Tensor, plan: NttPlan) -> torch.Tensor:
     return _mod_p(a + b, plan)
 
 
-def negacyclic_polymul(a: torch.Tensor, b: torch.Tensor,
-                       plan: NttPlan) -> torch.Tensor:
-    """Exact (a * b) in Rq for coefficient tensors (..., d); broadcasts."""
-    return ntt_inv_modq(eval_mul(ntt_fwd(a, plan), ntt_fwd(b, plan), plan),
-                        plan)
-
-
 def eval_matmul(ahat: torch.Tensor, bhat: torch.Tensor,
                 plan: NttPlan) -> torch.Tensor:
     """Ring-matrix product in the eval domain:

@@ -18,24 +18,27 @@ _ROT_B = (17, 29, 16, 24)
 _PARITY = 0x1BD11BDA
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) & M32) | (x >> (32 - r))
-
-
 def threefry2x32(k0, k1, c0: torch.Tensor, c1: torch.Tensor):
     """One 20-round Threefry-2x32 block per element: keys (k0, k1) — Python
     ints or int64 tensors holding uint32 words — and counter words (c0, c1)
-    -> output words (x0, x1) as int64 tensors in [0, 2**32)."""
+    -> output words (x0, x1) as int64 tensors in [0, 2**32).  The rounds
+    work in place on the two words and one scratch tensor."""
     ks2 = k0 ^ k1 ^ _PARITY
-    x0 = (c0 + k0) & M32
-    x1 = (c1 + k1) & M32
+    x0 = (c0 + k0).bitwise_and_(M32)
+    x1 = (c1 + k1).bitwise_and_(M32)
+    shape = torch.broadcast_shapes(x0.shape, x1.shape)
+    x0, x1 = (x if x.shape == shape else x.expand(shape).clone()
+              for x in (x0, x1))
+    hi = torch.empty_like(x1)
     inject = ((k1, ks2), (ks2, k0), (k0, k1), (k1, ks2), (ks2, k0))
     for step, (a, b) in enumerate(inject):
         for r in (_ROT_A if step % 2 == 0 else _ROT_B):
-            x0 = (x0 + x1) & M32
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + a) & M32
-        x1 = (x1 + b + step + 1) & M32
+            x0.add_(x1).bitwise_and_(M32)
+            torch.bitwise_right_shift(x1, 32 - r, out=hi)     # x1 <<< r
+            x1.bitwise_left_shift_(r).bitwise_and_(M32).bitwise_or_(hi)
+            x1.bitwise_xor_(x0)
+        x0.add_(a).bitwise_and_(M32)
+        x1.add_(b + step + 1).bitwise_and_(M32)
     return x0, x1
 
 

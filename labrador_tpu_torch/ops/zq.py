@@ -2,9 +2,11 @@
 
 Counterpart of the single-limb half of ``labrador_tpu/ops/zq.py``.  At
 small q a residue tensor is a plain int64 tensor, so the JAX package's
-structural helpers (``reshape``, ``moveaxis``, ``tmap`` ...), which exist to
-treat the two-limb big-q representation alike, are the tensor methods
-themselves; the big-q representation belongs to a later slice.
+helpers that exist to treat the two-limb big-q representation alike
+(``zeros``, ``stack``, ``reshape``, ``swapaxes``, ``index``, ``tmap`` ...)
+are the torch functions, tensor methods and indexing themselves, and
+``from_signed`` is ``mod_pos``; the big-q representation belongs to a
+later slice.
 """
 
 from __future__ import annotations
@@ -20,6 +22,10 @@ def is_big(q: int) -> bool:
 
 def add(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
     return mod_pos(a + b, q)
+
+
+def sub(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
+    return mod_pos(a - b, q)
 
 
 def to_signed_small(x: torch.Tensor, q: int) -> torch.Tensor:

@@ -108,6 +108,42 @@ def b_final(alpha_hat, beta_hat, b_hat, b_pp_hat, plan):
     return ntt_ops.ntt_inv_modq(ntt_ops.eval_add(t1, t2, plan), plan)
 
 
+def canonical_aggregates(params: LabradorParams, state, proof):
+    """Verifier lines 3-7 (verification.rs:38-148): the canonical a_ij
+    (r, r, d), phi_i (r, n, d) and b (d,) of the aggregated relation, from
+    the transcript and a dense ``structs.State`` or a structured
+    ``recursion.FoldedState``, whose alpha-contractions stream from its
+    base CRS.  Each level is reduced mod q before the next multiplication
+    (the CRT-range invariant)."""
+    p = params
+    plan = ntt_ops.plan_for(p)
+    a_pp = aggregate_a_pp(state.a_prime_k[:p.l_count], proof.psi, p.q)
+    pi_sigma = sigma_inv_pi(proof.pi, p)
+    phi_pp = aggregate_phi_pp(state.phi_prime_k[:p.l_count], proof.psi,
+                              proof.omega, pi_sigma, p)
+    alpha_hat = ntt_ops.ntt_fwd(proof.alpha, plan)
+    beta_hat = ntt_ops.ntt_fwd(proof.beta, plan)
+    a_pp_hat = ntt_ops.ntt_fwd(a_pp, plan)
+    phi_pp_hat = ntt_ops.ntt_fwd(phi_pp, plan)
+    if hasattr(state, "phi_alpha_modq"):
+        a_beta = ntt_ops.ntt_inv_modq(
+            phi_weighted_hat(beta_hat, a_pp_hat, plan), plan)
+        a_fin = zq.add(state.a_alpha_modq(proof.alpha), a_beta, p.q)
+        phi_beta = ntt_ops.ntt_inv_modq(
+            phi_weighted_hat(beta_hat, phi_pp_hat, plan), plan)
+        phi_fin = zq.add(state.phi_alpha_modq(proof.alpha), phi_beta, p.q)
+    else:
+        a_fin = ntt_ops.ntt_inv_modq(a_final_hat(
+            alpha_hat, beta_hat, ntt_ops.ntt_fwd(state.a_k, plan), a_pp_hat,
+            plan), plan)
+        phi_fin = ntt_ops.ntt_inv_modq(phi_final_hat(
+            alpha_hat, beta_hat, ntt_ops.ntt_fwd(state.phi_k, plan),
+            phi_pp_hat, plan), plan)
+    b = b_final(alpha_hat, beta_hat, ntt_ops.ntt_fwd(state.b_k, plan),
+                ntt_ops.ntt_fwd(proof.b_prime_prime, plan), plan)
+    return a_fin, phi_fin, b
+
+
 # ---------------------------------------------------------------------------
 # Commitments (proofgen.rs:41-153, 364-378; verification.rs:274-434)
 # ---------------------------------------------------------------------------

@@ -2,9 +2,10 @@
 
 Counterpart of ``labrador_tpu/prover.py`` (``prove_phase1/2a/2b/3``,
 ``prove_impl``, ``prove``).  PyTorch runs eagerly, so the phases are plain
-functions and the JAX ``while_loop``s are bounded Python loops.  Every
-tensor lives on the witness's device; on CUDA the three commitments run
-the hand-written kernels, on the CPU their plain versions.
+functions and the JAX ``while_loop``s are bounded Python loops.  The
+relation is a dense ``structs.State`` or a ``recursion.FoldedState``.
+Every tensor lives on the witness's device; on CUDA the kernels run, on
+the CPU their plain versions.
 """
 
 from __future__ import annotations
@@ -148,10 +149,17 @@ def prove_phase2b(params: LabradorParams, witness: torch.Tensor,
     beta = sampling.sample_beta(oracle.challenge_key(ost, TAG_BETA), p, dev)
     alpha_hat = ntt_ops.ntt_fwd(alpha, plan)
     beta_hat = ntt_ops.ntt_fwd(beta, plan)
-    phi_hat = ntt_ops.ntt_fwd(state.phi_k, plan)
-    phi_fin = ntt_ops.ntt_inv_modq(
-        protocol.phi_final_hat(alpha_hat, beta_hat, phi_hat, phi_pp_hat,
-                               plan), plan)
+    if hasattr(state, "phi_alpha_modq"):
+        # structured recursion state (recursion.FoldedState): the k'-sized
+        # alpha-contraction streams from the base CRS; no dense phi exists
+        pp_term = ntt_ops.ntt_inv_modq(
+            protocol.phi_weighted_hat(beta_hat, phi_pp_hat, plan), plan)
+        phi_fin = zq.add(state.phi_alpha_modq(alpha), pp_term, p.q)
+    else:
+        phi_hat = ntt_ops.ntt_fwd(state.phi_k, plan)
+        phi_fin = ntt_ops.ntt_inv_modq(
+            protocol.phi_final_hat(alpha_hat, beta_hat, phi_hat, phi_pp_hat,
+                                   plan), plan)
     phi_fin_hat_red = ntt_ops.ntt_fwd(phi_fin, plan)
 
     # -- step 7: h = (m + m^T) / 2 with m_ij = <phi_i, s_j> (proofgen.rs:320-358)

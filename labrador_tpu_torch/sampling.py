@@ -26,7 +26,7 @@ _MAX_HALVINGS = 64
 _MAX_CHALLENGE_DRAWS = 1000
 
 
-def uniform_zq(key: Key, shape, q: int, device=None) -> torch.Tensor:
+def uniform_zq(key: Key, shape, q: int, device="cuda") -> torch.Tensor:
     """Uniform [0, q) from 64 random bits per entry (bias < q / 2**64):
     ``jax.random.bits(key, shape + (2,))`` reduced as (b0 * 2**32 + b1) mod q."""
     if zq.is_big(q):
@@ -36,7 +36,7 @@ def uniform_zq(key: Key, shape, q: int, device=None) -> torch.Tensor:
 
 
 def generate_witness(key: Key, params: LabradorParams,
-                     device=None) -> torch.Tensor:
+                     device="cuda") -> torch.Tensor:
     """(r, n, d) witness with raw-residue squared norm <= beta^2: a uniform
     draw, halved as a whole until the bound holds (``sampling.py`` of the
     JAX package)."""
@@ -92,12 +92,12 @@ def operator_norm_sq(c_centered: torch.Tensor, d: int) -> float:
 def _draw_challenge(key: Key, d: int) -> torch.Tensor:
     kp, ks = keys.split(key)
     perm = keys.permutation(kp, _challenge_multiset(d))
-    signs = keys.bernoulli(ks, 0.5, (d,))
+    signs = keys.bernoulli(ks, 0.5, (d,), device="cpu")
     return torch.where(signs & (perm > 0), -perm, perm)
 
 
 def sample_challenge(key: Key, params: LabradorParams,
-                     device=None) -> torch.Tensor:
+                     device="cuda") -> torch.Tensor:
     """One challenge polynomial: a signed permutation of the fixed multiset,
     redrawn (key folded with 1) while its operator norm exceeds T = 15.
     Drawn on the host (64 values) and returned as residues mod q."""
@@ -116,31 +116,32 @@ def sample_challenge(key: Key, params: LabradorParams,
 # Verifier scalar/poly randomness (verification.rs:441-513)
 # ---------------------------------------------------------------------------
 
-def sample_psi(key: Key, params: LabradorParams, device=None) -> torch.Tensor:
+def sample_psi(key: Key, params: LabradorParams,
+               device="cuda") -> torch.Tensor:
     """(L,) uniform Zq (``generate_psi``)."""
     return uniform_zq(key, (params.l_count,), params.q, device)
 
 
 def sample_omega(key: Key, params: LabradorParams,
-                 device=None) -> torch.Tensor:
+                 device="cuda") -> torch.Tensor:
     """(256,) uniform Zq (``generate_omega``)."""
     return uniform_zq(key, (256,), params.q, device)
 
 
 def sample_alpha(key: Key, params: LabradorParams,
-                 device=None) -> torch.Tensor:
+                 device="cuda") -> torch.Tensor:
     """(K, d) uniform ring elements (``fetch_alpha``)."""
     return uniform_zq(key, (params.k_count, params.d), params.q, device)
 
 
 def sample_beta(key: Key, params: LabradorParams,
-                device=None) -> torch.Tensor:
+                device="cuda") -> torch.Tensor:
     """(upper_bound, d) uniform ring elements (``fetch_beta``)."""
     return uniform_zq(key, (params.upper_bound, params.d), params.q, device)
 
 
 def sample_jl_matrix(key: Key, params: LabradorParams,
-                     device=None) -> torch.Tensor:
+                     device="cuda") -> torch.Tensor:
     """(256, n*d) ternary int8 matrix: two random bits b0, b1 -> b0 + b1 - 1
     (P(-1) = P(+1) = 1/4)."""
     b = keys.bits(key, (256, params.n * params.d), device)

@@ -1,9 +1,10 @@
 """The LaBRADOR verifier: checks 8-20 and the b'' constant term.
 
 Counterpart of ``labrador_tpu/verifier.py`` (``check14_norm_bound``,
-``verify_report``, ``verify``), with the same report keys.  Checks 15, 19
-and 20 re-expand the CRS through the commitment kernels (CUDA tensors) or
-their plain versions (CPU tensors).
+``verify_report``, ``verify``), with the same report keys, for a dense
+``structs.State`` or a ``recursion.FoldedState``.  Checks 15, 19 and 20
+re-expand the CRS through the commitment kernels (CUDA tensors) or their
+plain versions (CPU tensors).
 """
 
 from __future__ import annotations
@@ -61,29 +62,9 @@ def verify_report(params: LabradorParams, state: State, proof: Transcript,
     checks: dict[str, bool] = {}
 
     # ---- lines 3-7: recomputation (verification.rs:38-148)
-    a_pp = protocol.aggregate_a_pp(state.a_prime_k[:p.l_count], proof.psi,
-                                   p.q)
-    pi_sigma = protocol.sigma_inv_pi(proof.pi, p)
-    phi_pp = protocol.aggregate_phi_pp(state.phi_prime_k[:p.l_count],
-                                       proof.psi, proof.omega, pi_sigma, p)
-    alpha_hat = ntt_ops.ntt_fwd(proof.alpha, plan)
-    beta_hat = ntt_ops.ntt_fwd(proof.beta, plan)
-    a_pp_hat = ntt_ops.ntt_fwd(a_pp, plan)
-    phi_pp_hat = ntt_ops.ntt_fwd(phi_pp, plan)
-    b_hat = ntt_ops.ntt_fwd(state.b_k, plan)
-    b_pp_hat = ntt_ops.ntt_fwd(proof.b_prime_prime, plan)
-    a_hat = ntt_ops.ntt_fwd(state.a_k, plan)
-    phi_hat = ntt_ops.ntt_fwd(state.phi_k, plan)
-    # reduce mod q between multiplication levels (CRT-range invariant)
-    a_fin = ntt_ops.ntt_inv_modq(
-        protocol.a_final_hat(alpha_hat, beta_hat, a_hat, a_pp_hat, plan),
-        plan)
-    phi_fin = ntt_ops.ntt_inv_modq(
-        protocol.phi_final_hat(alpha_hat, beta_hat, phi_hat, phi_pp_hat,
-                               plan), plan)
+    a_fin, phi_fin, b = protocol.canonical_aggregates(p, state, proof)
     a_fin_hat = ntt_ops.ntt_fwd(a_fin, plan)
     phi_fin_hat = ntt_ops.ntt_fwd(phi_fin, plan)
-    b = protocol.b_final(alpha_hat, beta_hat, b_hat, b_pp_hat, plan)
 
     # ---- checks 8-9: symmetry (verification.rs:157-178)
     checks["c08_g_symmetric"] = zq.all_eq(proof.g, torch.swapaxes(proof.g, 0, 1))

@@ -87,8 +87,9 @@ def torch_run(jax_run):
     """The port proves and verifies the JAX instance, carried across."""
     st_names = ("a_k", "phi_k", "b_k", "a_prime_k", "phi_prime_k",
                 "b_prime_k")
-    state = interop.state_from_numpy(_fields(jax_run["state"], st_names))
-    witness = interop.tensor(np.asarray(jax_run["witness"]))
+    state = interop.state_from_numpy(_fields(jax_run["state"], st_names),
+                                     device="cpu")
+    witness = interop.tensor(np.asarray(jax_run["witness"]), device="cpu")
     crs = interop.crs_from_words(np.asarray(jax_run["crs"].key), P)
     kv = interop.key_from_words(jax.random.key_data(jax_run["kv"]))
     proof = tprover.prove(P, witness, state, crs, kv)
@@ -128,7 +129,7 @@ def test_port_verifies_jax_proof(jax_run, torch_run):
     """The JAX package's proof, carried across field by field, gets the
     same report from the port's verifier."""
     proof = interop.transcript_from_numpy(_fields(jax_run["proof"],
-                                                  TR_FIELDS))
+                                                  TR_FIELDS), device="cpu")
     got = tverifier.verify_report(P, torch_run["state"], proof,
                                   torch_run["crs"])
     assert got == jax_run["report"]
@@ -248,15 +249,16 @@ def test_check14_digits_and_norm_equal(jax_run, decomp_mode, norm_mode,
     for name, x in arrays.items():
         fn = f"decompose_{name}"
         jd = getattr(jprotocol, fn)(jnp.asarray(x, jnp.int32), p, decomp_mode)
-        td = getattr(tprotocol, fn)(interop.tensor(x), p, decomp_mode)
+        td = getattr(tprotocol, fn)(interop.tensor(x, device="cpu"), p,
+                                    decomp_mode)
         np.testing.assert_array_equal(td.numpy(),
                                       np.asarray(jd).astype(np.int64))
         jdig.append(jd)
         tdig.append(td)
     want = bool(jverifier.check14_norm_bound(
         p, jnp.asarray(arrays["z"], jnp.int32), *jdig, norm_mode))
-    got = tverifier.check14_norm_bound(p, interop.tensor(arrays["z"]), *tdig,
-                                       norm_mode)
+    got = tverifier.check14_norm_bound(p, interop.tensor(arrays["z"], "cpu"),
+                                       *tdig, norm_mode)
     assert got == want
     if oversized_z and decomp_mode == norm_mode == "exact":
         assert not got
@@ -264,7 +266,7 @@ def test_check14_digits_and_norm_equal(jax_run, decomp_mode, norm_mode,
         assert got
 
 
-@pytest.mark.parametrize("flag", [["--fs"], ["--big-q"], ["-R"],
+@pytest.mark.parametrize("flag", [["--fs"], ["--big-q"], ["-R", "--big-q"],
                                   ["--phases"], ["--ckpt", "x"]])
 def test_cli_unported_flags_exit(flag):
     with pytest.raises(SystemExit) as e:

@@ -2,7 +2,11 @@
 cd_sum_plain) against the JAX package's Pallas kernels in TPU-interpret
 mode and against its XLA path, exactly; at config 1 and at a shape whose
 u2 stream (L = 84) is not a multiple of the Pallas step and whose C-term
-runs t_2 = 2 < t_1 = 4 (the offset quirk).  On a CUDA machine, also each
+runs t_2 = 2 < t_1 = 4 (the offset quirk).  Likewise the plain polymul
+versions (negacyclic_polymul_plain, negacyclic_polymul_bhat_plain) against
+the fused Pallas polymul and the XLA transforms: past one Pallas block
+(padding), with two-sided broadcasting, and with a fixed, a per-row and a
+random-residue evaluation-domain operand.  On a CUDA machine, also each
 CUDA kernel against its plain version.
 
 JAX is imported only by the ``jx`` fixture, so on a card machine without
@@ -18,7 +22,8 @@ import torch
 from labrador_tpu.params import LabradorParams
 
 from labrador_tpu_torch.crs import CRS as TCRS
-from labrador_tpu_torch.ops import ajtai_cuda, cd_cuda, u1_cuda
+from labrador_tpu_torch.ops import ajtai_cuda, cd_cuda, polymul_cuda, u1_cuda
+from labrador_tpu_torch.ops import ntt as tntt
 from labrador_tpu_torch.protocol import _tri_stream
 
 SHAPES = {"config1": LabradorParams(n=2, r=2),
@@ -62,13 +67,14 @@ def jx():
 
     from labrador_tpu import protocol
     from labrador_tpu.crs import CRS
-    from labrador_tpu.ops import ntt
+    from labrador_tpu.ops import ntt, ntt_pallas
     from labrador_tpu.ops.ajtai_pallas import ajtai_commit_pallas
     from labrador_tpu.ops.cd_pallas import cd_sum_pallas
     from labrador_tpu.ops.u1_pallas import u1_bterm_pallas
     return types.SimpleNamespace(
         jnp=jnp, interpret=pltpu.force_tpu_interpret_mode, protocol=protocol,
-        CRS=CRS, ntt=ntt, ajtai_commit_pallas=ajtai_commit_pallas,
+        CRS=CRS, ntt=ntt, ntt_pallas=ntt_pallas,
+        ajtai_commit_pallas=ajtai_commit_pallas,
         cd_sum_pallas=cd_sum_pallas, u1_bterm_pallas=u1_bterm_pallas)
 
 
@@ -79,6 +85,10 @@ def _eq(got, want):
 
 def _j(jx, a):
     return jx.jnp.asarray(a, jx.jnp.int32)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a, np.int64))
 
 
 @pytest.mark.parametrize("r_eff", ["r", 1])
@@ -136,6 +146,101 @@ def test_small_shape_exercises_padding_and_quirk():
     step = 4096 // p.d                   # cd_pallas lin indices per step
     assert (n_tri * p.t_1) > step and (n_tri * p.t_1) % step != 0
     assert p.t_2 < p.t_1
+
+
+# -- kernel 1: the fused negacyclic polymul ----------------------------------
+
+POLY_P = SHAPES["config1"]
+POLY_ROWS = 1024 + 77            # ntt_pallas.BLOCK + 77: a padded grid
+
+
+def _poly_inputs(kind: str):
+    """(a, b) coefficient residues for one broadcasting case."""
+    rng = np.random.default_rng(0xB10C)
+    q, d = POLY_P.q, POLY_P.d
+    if kind == "padded":
+        return (rng.integers(0, q, (POLY_ROWS, d)),
+                rng.integers(0, q, (POLY_ROWS, d)))
+    # (d,) x (n, d): the recursion's a17 * cphi
+    return rng.integers(0, q, (d,)), rng.integers(0, q, (5, d))
+
+
+@pytest.mark.parametrize("kind", ["padded", "two_sided_broadcast"])
+def test_polymul_plain_matches_pallas_and_xla(jx, kind):
+    a, b = _poly_inputs(kind)
+    jplan, tplan = jx.ntt.plan_for(POLY_P), tntt.plan_for(POLY_P)
+    got = polymul_cuda.negacyclic_polymul_plain(_t(a), _t(b), tplan)
+    assert tuple(got.shape) == np.broadcast_shapes(a.shape, b.shape)
+    _eq(got, jx.ntt.negacyclic_polymul(_j(jx, a), _j(jx, b), jplan))
+    # the Pallas entry point broadcasts its second operand to the first's
+    # shape only: give it the larger operand first (the product commutes)
+    big, small = (a, b) if a.ndim >= b.ndim else (b, a)
+    with jx.interpret():
+        want_pallas = jx.ntt_pallas.negacyclic_polymul_pallas(
+            _j(jx, big), _j(jx, small), jplan)
+    _eq(got, want_pallas)
+    assert torch.equal(polymul_cuda.negacyclic_polymul(_t(a), _t(b), tplan),
+                       got)
+
+
+def _bhat_input(jx, kind: str, jplan):
+    """(a, bhat) with bhat (P, 1, d) fixed, (P, N, d) per row, or random
+    canonical per-prime residues (not the transform of any b mod q)."""
+    rng = np.random.default_rng(0xB4A7)
+    q, d, P = POLY_P.q, POLY_P.d, jplan.n_primes
+    a = rng.integers(0, q, (POLY_ROWS, d))
+    if kind == "random_residues":
+        pv = np.asarray(jplan.primes).reshape(P, 1, 1)
+        return a, rng.integers(0, 1 << 62, (P, POLY_ROWS, d)) % pv
+    rows = 1 if kind == "fixed" else POLY_ROWS
+    b = rng.integers(0, q, (rows, d))
+    return a, np.asarray(jx.ntt.ntt_fwd(_j(jx, b), jplan))
+
+
+@pytest.mark.parametrize("kind", ["fixed", "per_row", "random_residues"])
+def test_polymul_bhat_plain_matches_pallas_and_xla(jx, kind):
+    jplan, tplan = jx.ntt.plan_for(POLY_P), tntt.plan_for(POLY_P)
+    a, bhat = _bhat_input(jx, kind, jplan)
+    got = polymul_cuda.negacyclic_polymul_bhat_plain(_t(a), _t(bhat), tplan)
+    assert tuple(got.shape) == a.shape
+    want_xla = jx.ntt.ntt_inv_modq(jx.ntt.eval_mul(
+        jx.ntt.ntt_fwd(_j(jx, a), jplan), _j(jx, bhat), jplan), jplan)
+    _eq(got, want_xla)
+    with jx.interpret():
+        want_pallas = jx.ntt_pallas.negacyclic_polymul_pallas_bhat(
+            _j(jx, a), _j(jx, bhat), jplan)
+    _eq(got, want_pallas)
+
+
+@pytest.mark.cuda
+def test_cuda_polymul_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    plan = tntt.plan_for(POLY_P)
+    rng = np.random.default_rng(5)
+    q, d, P = POLY_P.q, POLY_P.d, plan.n_primes
+
+    def cu(x):
+        return _t(x).to("cuda")
+
+    a = rng.integers(0, q, (POLY_ROWS, d))
+    b = rng.integers(0, q, (POLY_ROWS, d))
+    pv = np.asarray(plan.primes).reshape(P, 1, 1)
+    bh_fixed = tntt.ntt_fwd(cu(b[:1]), plan)
+    bh_rand = cu(rng.integers(0, 1 << 62, (P, POLY_ROWS, d)) % pv)
+    pairs = [
+        (polymul_cuda.negacyclic_polymul(cu(a), cu(b), plan),
+         polymul_cuda.negacyclic_polymul_plain(cu(a), cu(b), plan)),
+        (polymul_cuda.negacyclic_polymul(cu(a[0]), cu(b[:5]), plan),
+         polymul_cuda.negacyclic_polymul_plain(cu(a[0]), cu(b[:5]), plan)),
+        (polymul_cuda.negacyclic_polymul_bhat(cu(a), bh_fixed, plan),
+         polymul_cuda.negacyclic_polymul_bhat_plain(cu(a), bh_fixed, plan)),
+        (polymul_cuda.negacyclic_polymul_bhat(cu(a), bh_rand, plan),
+         polymul_cuda.negacyclic_polymul_bhat_plain(cu(a), bh_rand, plan)),
+    ]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

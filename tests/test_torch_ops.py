@@ -1,10 +1,12 @@
 """Parity of the PyTorch port's ops with the JAX package, module by module:
-modmath, ntt (plan tables too), rq, decompose, prg, the jax.random-
-compatible key layer, CRS tiles and the samplers.  Same inputs (numpy from
+params (every derived field), modmath, ntt (plan tables too), rq,
+decompose, prg, the jax.random-compatible key layer, CRS tiles and the
+samplers.  Same inputs (numpy from
 a seed, or the same key words) on both sides; every comparison is exact
 equality.  Also the import-boundary check of the port."""
 
 import ast
+import dataclasses
 from pathlib import Path
 
 import jax
@@ -21,17 +23,20 @@ from labrador_tpu.ops import modmath as jmodmath
 from labrador_tpu.ops import ntt as jntt
 from labrador_tpu.ops import prg as jprg
 from labrador_tpu.ops import rq as jrq
+from labrador_tpu import params as jparams
 from labrador_tpu.params import LabradorParams, T_OPNORM
 from labrador_tpu.utils import golden
 
 from labrador_tpu_torch import crs as tcrs
 from labrador_tpu_torch import keys as tkeys
+from labrador_tpu_torch import params as tparams
 from labrador_tpu_torch import sampling as tsampling
 from labrador_tpu_torch import structs as tstructs
 from labrador_tpu_torch.interop import key_from_words
 from labrador_tpu_torch.ops import decompose as tdecompose
 from labrador_tpu_torch.ops import modmath as tmodmath
 from labrador_tpu_torch.ops import ntt as tntt
+from labrador_tpu_torch.ops import polymul_cuda as tpolymul
 from labrador_tpu_torch.ops import prg as tprg
 from labrador_tpu_torch.ops import rq as trq
 
@@ -60,6 +65,46 @@ def _jkey(seed):
 
 def _tkey(jk):
     return key_from_words(np.asarray(jax.random.key_data(jk)))
+
+
+# ---------------------------------------------------------------------------
+# params: the port's own copy derives every field as the JAX package does
+# ---------------------------------------------------------------------------
+
+PARAM_GRID = {
+    "config1": dict(n=2, r=2),
+    "config1_exact": dict(n=2, r=2, exact_digits=True),
+    "2^14": dict(n=16, r=16, kappa_override=256),
+    "2^14_exact": dict(n=16, r=16, kappa_override=256, exact_digits=True),
+    "recursion_test": dict(n=2, r=2, kappa_override=16, exact_digits=True),
+    "folded": dict(n=14, r=19, q=8191, k_count=51, l_count=1,
+                   kappa_override=16, exact_digits=True, beta_override=380),
+    "big_q": dict(n=2, r=2, q_start=(1 << 32) - 1, exact_digits=True),
+}
+
+
+@pytest.mark.parametrize("kw", list(PARAM_GRID.values()), ids=list(PARAM_GRID))
+def test_params_derive_like_jax(kw):
+    jp, tp = LabradorParams(**kw), tparams.LabradorParams(**kw)
+    for f in dataclasses.fields(jp):
+        assert getattr(tp, f.name) == getattr(jp, f.name), f.name
+    assert [f.name for f in dataclasses.fields(tp)] == \
+        [f.name for f in dataclasses.fields(jp)]
+    assert (tp.upper_bound, tp.inv2) == (jp.upper_bound, jp.inv2)
+
+
+def test_params_helpers_like_jax():
+    for start in (8191, 8192, (1 << 32) - 1):
+        assert tparams.find_suitable_prime(start) == \
+            jparams.find_suitable_prime(start)
+    for q, b in ((8191, 9), (8191, 4), (4294967311, 35)):
+        assert tparams._ceil_log(q, b) == jparams._ceil_log(q, b)
+    for q, acc in ((8191, 1024), (8191, 1 << 20), (32513, 1542)):
+        assert tparams.select_crt_primes(q, 64, acc) == \
+            jparams.select_crt_primes(q, 64, acc)
+    for name in ("D", "TAU", "T_OPNORM", "K_DEFAULT", "L_DEFAULT",
+                 "Q_START_DEFAULT"):
+        assert getattr(tparams, name) == getattr(jparams, name), name
 
 
 # ---------------------------------------------------------------------------
@@ -139,7 +184,7 @@ def test_negacyclic_polymul_matches_schoolbook():
     rng = np.random.default_rng(5)
     a = rng.integers(0, P1.q, (4, 64))
     b = rng.integers(0, P1.q, (4, 64))
-    got = tntt.negacyclic_polymul(_t(a), _t(b), tp).numpy()
+    got = tpolymul.negacyclic_polymul(_t(a), _t(b), tp).numpy()
     for i in range(4):
         want = golden.negacyclic_mul(a[i], b[i], P1.q).astype(np.int64)
         np.testing.assert_array_equal(got[i], want)
@@ -204,11 +249,11 @@ def test_key_streams(seed):
         assert _tkey(a) == b
     for data in (0, 1, 5, 2**32 - 1):
         assert _tkey(jax.random.fold_in(jk, data)) == tkeys.fold_in(tk, data)
-    _eq(tkeys.bits(tk, (3, 7, 2)),
+    _eq(tkeys.bits(tk, (3, 7, 2), device="cpu"),
         jax.random.bits(jk, (3, 7, 2), jnp.uint32))
     perm = jax.random.permutation(jk, jnp.arange(64))
     _eq(tkeys.permutation(tk, torch.arange(64)), perm)
-    _eq(tkeys.bernoulli(tk, 0.5, (256,)),
+    _eq(tkeys.bernoulli(tk, 0.5, (256,), device="cpu"),
         jax.random.bernoulli(jk, 0.5, (256,)))
 
 
@@ -223,13 +268,20 @@ def test_crs_tiles(p):
     assert tuple(int(v) for v in np.asarray(jc.key)) == tc.key
     for name in ("_off_a", "_off_b", "_off_c", "_off_d"):
         assert getattr(tc, name) == getattr(jc, name)
-    _eq(tc.a_rows(3, 5), jc.a_rows(3, 5))
-    _eq(tc.b_rows(1, 2, 4, 3), jc.b_rows(1, 2, 4, 3))
-    _eq(tc.c_vec(0, 1, 1), jc.c_vec(0, 1, 1))
-    _eq(tc.d_vec(1, p.r - 1, p.t_1 - 1), jc.d_vec(1, p.r - 1, p.t_1 - 1))
+    cpu = "cpu"
+    _eq(tc.a_rows(3, 5, device=cpu), jc.a_rows(3, 5))
+    _eq(tc.b_rows(1, 2, 4, 3, device=cpu), jc.b_rows(1, 2, 4, 3))
+    _eq(tc.c_vec(0, 1, 1, device=cpu), jc.c_vec(0, 1, 1))
+    _eq(tc.d_vec(1, p.r - 1, p.t_1 - 1, device=cpu),
+        jc.d_vec(1, p.r - 1, p.t_1 - 1))
+    _eq(tc.a_rows_dyn(2, 3, device=cpu), jc.a_rows_dyn(2, 3))
+    m = p.r * p.t_1 - 1
+    _eq(tc.b_mat_dyn(m, col0=1, ncols=3, device=cpu),
+        jc.b_mat_dyn(m, col0=1, ncols=3))
+    _eq(tc.b_mat_dyn(1, device=cpu), jc.b_mat_dyn(1))
     _eq(tc._expand_dyn(tc._off_b, 3, p.kappa_1 * p.kappa,
                        (2, 3, p.d), (p.kappa * p.d, p.d, 1), idx1=2,
-                       stride1=p.d),
+                       stride1=p.d, device=cpu),
         jc._expand_dyn(jc._off_b, 3, p.kappa_1 * p.kappa,
                        (2, 3, p.d), (p.kappa * p.d, p.d, 1), idx1=2,
                        stride1=p.d))
@@ -243,7 +295,7 @@ def test_crs_tiles(p):
 def test_generate_witness_and_state(p):
     jk = jax.random.key(11)
     w = jsampling.generate_witness(jk, p)
-    tw = tsampling.generate_witness(_tkey(jk), p)
+    tw = tsampling.generate_witness(_tkey(jk), p, device="cpu")
     _eq(tw, w)
     ks = jax.random.key(12)
     st = jstructs.generate_state(ks, w, p)
@@ -261,8 +313,8 @@ def test_verifier_samplers():
                    (jsampling.sample_alpha, tsampling.sample_alpha),
                    (jsampling.sample_beta, tsampling.sample_beta),
                    (jsampling.sample_jl_matrix, tsampling.sample_jl_matrix)):
-        _eq(tf(tk, P_SMALL), jf(jk, P_SMALL))
-    _eq(tsampling.uniform_zq(tk, (3, 5), P1.q),
+        _eq(tf(tk, P_SMALL, device="cpu"), jf(jk, P_SMALL))
+    _eq(tsampling.uniform_zq(tk, (3, 5), P1.q, device="cpu"),
         jsampling.uniform_zq(jk, (3, 5), P1.q))
 
 
@@ -289,16 +341,14 @@ def test_200_challenges_match():
     for i in range(200):
         tk = _tkey(jkeys[i])
         np.testing.assert_array_equal(
-            tsampling.sample_challenge(tk, P1).numpy(), want[i].astype(np.int64))
+            tsampling.sample_challenge(tk, P1, device="cpu").numpy(),
+            want[i].astype(np.int64))
         assert min(abs(v - T_OPNORM) for v in _port_draw_norms(tk, P1)) > 1e-3
 
 
 # ---------------------------------------------------------------------------
 # import boundary
 # ---------------------------------------------------------------------------
-
-_ALLOWED_OLD = {"labrador_tpu.params", "labrador_tpu.utils.golden"}
-
 
 def _imports(path: Path):
     tree = ast.parse(path.read_text())
@@ -314,8 +364,9 @@ def _imports(path: Path):
     "path", sorted((ROOT / "labrador_tpu_torch").rglob("*.py"))
     + [ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
+    """No module of the port, and not chip_smoke.py, imports JAX or any
+    module of the JAX package."""
     for mod in _imports(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "flax"), f"{path}: {mod}"
-        if top == "labrador_tpu":
-            assert mod in _ALLOWED_OLD, f"{path} imports {mod}"
+        assert top not in ("jax", "jaxlib", "flax", "labrador_tpu"), \
+            f"{path} imports {mod}"
