@@ -1,18 +1,21 @@
 """Smoke run of the PyTorch + CUDA port on one GPU: builds the kernels,
-holds each against its plain PyTorch version, proves and verifies config 1
-against the JAX package's golden transcript, proves and verifies the
-2^14-coefficient instance (BASELINE.json config 3), and runs the recursion
-flow (``cli -R``: prove, fold, prove and verify the folded instance) at
-config 1 against the JAX golden digests and at the 2^14 base.
+holds each against its plain PyTorch version (kernels 2-4 in their small-q
+and their big-q mode), proves and verifies config 1 against the JAX
+package's golden transcript, proves and verifies the 2^14-coefficient
+instance (BASELINE.json config 3), runs the recursion flow (``cli -R``:
+prove, fold, prove and verify the folded instance) at config 1 against the
+JAX golden digests and at the 2^14 base, and does the same at the
+2^32-scale modulus (``cli --big-q``, with and without ``-R``).
 
 Usage (from the repository root, on a machine with one CUDA card):
     python3 chip_smoke.py
 
 Every phase raises on failure, so the script exits non-zero; without a
 CUDA device it exits non-zero before printing any result.  The line before
-the last lists each kernel with its launches in the 2^14 recursion run,
-its time beside the plain version's, a library call's and its bound; the
-last line of standard output is the result JSON.  Imports nothing of JAX.
+the last lists each kernel with its launches in the 2^14 recursion run of
+its modulus, its time beside the plain version's, a library call's and its
+bound; the last line of standard output is the result JSON.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -30,7 +33,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "labrador_tpu_torch" / "golden" / "config1.json"
 GOLDEN_R = ROOT / "labrador_tpu_torch" / "golden" / "config1_recursion.json"
+GOLDEN_BIG = ROOT / "labrador_tpu_torch" / "golden" / "config1_bigq.json"
 REAL = dict(n=16, r=16, kappa=256)       # BASELINE.json config 3
+BIG_Q = dict(q_start=(1 << 32) - 1, exact_digits=True)   # cli --big-q
 TIMED_RUNS = 3
 POLY_PRODUCTS = 100_000                  # BASELINE.json config 2
 POLY_TAIL = 99_999                       # not a multiple of 4 (COEF_ROWS)
@@ -80,31 +85,44 @@ class Work:
     operations."""
 
     def __init__(self, nbytes: float, int32_ops: float, macs: float,
-                 limb_products: int):
+                 limb_products: int, mac_ops: int = 1,
+                 tpu_limb_products: int | None = None):
         self.nbytes, self.int32_ops = nbytes, int32_ops
         self.macs, self.limb_products = macs, limb_products
+        self.mac_ops = mac_ops
+        # the limb products of the TPU kernel's own scheme, where it does
+        # more than the function needs (per CRT prime at big q): printed
+        # beside the bound, not used in it
+        self.tpu_limb_products = tpu_limb_products
 
-    def bound(self) -> tuple[float, str]:
+    def bound(self, limb_products: int | None = None) -> tuple[float, str]:
         """The least time (ms) the card could take: the larger of the bytes
         over the memory rate and the operations over their peak rates
         (Threefry on the CUDA cores, multiply-adds on int8 tensor cores)."""
+        lp = self.limb_products if limb_products is None else limb_products
         t_bytes = self.nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = max(self.int32_ops / INT32_OPS_PER_S,
-                    2 * self.macs * self.limb_products / INT8_TC_OPS_PER_S
-                    ) * 1e3
+                    2 * self.macs * lp / INT8_TC_OPS_PER_S) * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                              "operations")
 
     def cuda_core_ms(self) -> float:
-        """The same bound with the multiply-adds on the CUDA cores (one
-        int32 IMAD each), the design the kernels use today."""
+        """The same bound with the multiply-adds on the CUDA cores
+        (mac_ops int32 operations each: one IMAD for a product below 2^31,
+        more for a wider one), the design the kernels use today."""
         return max(self.nbytes / HBM_BYTES_PER_S,
-                   (self.int32_ops + self.macs) / INT32_OPS_PER_S) * 1e3
+                   (self.int32_ops + self.macs * self.mac_ops)
+                   / INT32_OPS_PER_S) * 1e3
 
     def describe(self) -> str:
         bound_ms, bound_by = self.bound()
-        return (f"bound {bound_ms:.4f} ms ({bound_by}; CUDA-core bound "
-                f"{self.cuda_core_ms():.4f} ms)")
+        tpu = ""
+        if self.tpu_limb_products is not None:
+            tpu = (f"; with the TPU kernel's {self.tpu_limb_products} limb "
+                   f"products {self.bound(self.tpu_limb_products)[0]:.4f} ms")
+        return (f"bound {bound_ms:.4f} ms ({bound_by}, {self.limb_products} "
+                f"limb products; CUDA-core bound "
+                f"{self.cuda_core_ms():.4f} ms{tpu})")
 
 
 def _sync() -> None:
@@ -140,30 +158,79 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to("cuda")
 
 
+# int32 operations of one big-q multiply-add on the CUDA cores: a 64-bit
+# product of the centred entry and operand (both below 1.25 * 2^31 for q <
+# 2^32 + 2^30), two wide IMADs, and its 128-bit accumulation, two adds with
+# carry.  Above that q the kernel takes a 128-bit product, about twice the
+# operations, and the CUDA-core bound printed there is low.
+BIG_MAC_OPS = 4
+# the largest prime below 2^33, the top of the big-q range: the kernels'
+# products of two centred values reach 2^64 there
+TOP_Q_START = (1 << 33) - 9
+
+
+def _kernel_info(mod, q: int):
+    """The KernelInfo of a wrapper module's kernel in the mode of q."""
+    from labrador_tpu_torch.ops.zq import is_big
+    return mod.KERNEL_BIG if is_big(q) else mod.KERNEL
+
+
 def _kernel_cases(p, seed: int):
     """(kernel module, label, kernel fn, plain fn, Work) at the shapes of
-    instance ``p``, on inputs from a fixed numpy seed: random residues for
-    Ajtai, random centred digits for the u1 B-term and the C/D sums."""
+    instance ``p``, on inputs from a fixed numpy seed.  Small q: random
+    residues for Ajtai, random centred digits lifted mod q for the u1
+    B-term and the C/D sums.  Big q, the JAX package's convention there:
+    signed operands at their magnitude bounds, an Ajtai witness up to q/2
+    (the most the kernel takes, beyond the JAX package's int32 witness),
+    -2^31 among them (it reaches check 15 as the int32 wrap of an
+    oversized z), and digits up to +-b/2, the bounds present."""
     from labrador_tpu_torch.crs import CRS
-    from labrador_tpu_torch.ops import ajtai_cuda, cd_cuda, u1_cuda
+    from labrador_tpu_torch.ops import ajtai_cuda, cd_cuda, ntt, u1_cuda
+    from labrador_tpu_torch.ops.zq import is_big
     from labrador_tpu_torch.protocol import _tri_stream
 
     crs = CRS.create(p, seed=0xC0FFEE + seed)
     rng = np.random.default_rng(seed)
     d = p.d
+    big = is_big(p.q)
+
+    def signed(top: int, shape):
+        x = rng.integers(-top, top + 1, shape)
+        x.reshape(-1)[:2] = [top, -top]
+        return x
 
     def digits(base: int, shape):
-        return _t(rng.integers(-(base // 2), base // 2 + 1, shape) % p.q)
+        x = signed(base // 2, shape)
+        return _t(x if big else x % p.q)
 
     def work(rows: int, L: int, nrhs: int, max_rhs: int) -> Work:
         """One ring-stream contraction: digits in and result out; one
-        Threefry block per CRS entry (residues below q) and d multiply-adds
-        per entry and right-hand side (entries below max_rhs in size)."""
+        Threefry block per CRS entry and d multiply-adds per entry and
+        right-hand side (entries below max_rhs in size).  Limb products of
+        the direct product with no CRT: the entry's limbs (a residue below
+        q at small q; centred, at most q/2, at big q, as the kernel takes
+        it) against the operand's.  At big q the Pallas kernel does more,
+        per CRT prime 2 limbs of the entry's residue against the
+        operand's; that count is printed beside the bound."""
         entries = rows * L * d
+        tpu_lp = None
+        if big:
+            lp = limbs(p.q // 2) * limbs(max_rhs)
+            tpu_lp = ntt.plan_for(p).n_primes * 2 * limbs(max_rhs)
+        else:
+            lp = limbs(p.q - 1) * limbs(max_rhs)
         return Work(8 * d * nrhs * (L + rows), entries * THREEFRY_OPS,
-                    entries * d * nrhs, limbs(p.q - 1) * limbs(max_rhs))
+                    entries * d * nrhs, lp, BIG_MAC_OPS if big else 1,
+                    tpu_lp)
 
-    w = _t(rng.integers(0, p.q, (p.r, p.n, p.d)))
+    if big:
+        w_max = p.q // 2
+        w = signed(w_max, (p.r, p.n, p.d))
+        w.reshape(-1)[2] = -(1 << 31)
+    else:
+        w_max = p.q - 1
+        w = rng.integers(0, p.q, (p.r, p.n, p.d))
+    w = _t(w)
     t_dig = digits(p.b_1, (p.t_1, p.r, p.kappa, p.d))
     g_str = _tri_stream(digits(p.b_2, (p.t_2, p.r, p.r, p.d)), p)
     h_str = _tri_stream(digits(p.b_1, (p.t_1, p.r, p.r, p.d)), p)
@@ -172,11 +239,11 @@ def _kernel_cases(p, seed: int):
         (ajtai_cuda, "ajtai r_eff=r",
          lambda: ajtai_cuda.ajtai_commit(crs, w),
          lambda: ajtai_cuda.ajtai_commit_plain(crs, w),
-         work(p.kappa, p.n, p.r, p.q - 1)),
+         work(p.kappa, p.n, p.r, w_max)),
         (ajtai_cuda, "ajtai r_eff=1",
          lambda: ajtai_cuda.ajtai_commit(crs, w[:1]),
          lambda: ajtai_cuda.ajtai_commit_plain(crs, w[:1]),
-         work(p.kappa, p.n, 1, p.q - 1)),
+         work(p.kappa, p.n, 1, w_max)),
         (u1_cuda, "u1 B-term",
          lambda: u1_cuda.u1_bterm(crs, t_dig),
          lambda: u1_cuda.u1_bterm_plain(crs, t_dig),
@@ -195,8 +262,9 @@ def _kernel_cases(p, seed: int):
 def hold_kernels(p, label_size: str, stats: dict | None = None,
                  plain_reps: int = 2) -> None:
     """Kernels 2-4 against their plain versions at the shapes of instance
-    ``p``; bit-equality required.  Where ``stats`` is given, records each
-    kernel's error there, and the times and bound of its first case."""
+    ``p`` (in the mode of its modulus); bit-equality required.  Where
+    ``stats`` is given, records each kernel's error there, and the times
+    and bound of its first case."""
     for mod, label, kern, plain, work in _kernel_cases(p, seed=7):
         got, want = kern(), plain()
         _sync()
@@ -206,12 +274,12 @@ def hold_kernels(p, label_size: str, stats: dict | None = None,
                                  f"plain (max abs err {err})")
         ms = cuda_ms(kern, 10)
         plain_ms = cuda_ms(plain, plain_reps)
-        log(f"kernel {label:16s} {label_size:9s} {str(tuple(got.shape)):15s}"
+        log(f"kernel {label:16s} {label_size:13s} {str(tuple(got.shape)):15s}"
             f" bit-equal (tolerance 0)  kernel {ms:.4f} ms  plain "
             f"{plain_ms:.4f} ms  {work.describe()}")
         if stats is None:
             continue
-        st = stats.setdefault(mod.KERNEL.name, {"max_abs_err": 0})
+        st = stats.setdefault(_kernel_info(mod, p.q).name, {"max_abs_err": 0})
         st["max_abs_err"] = max(st["max_abs_err"], err)
         if "ms" not in st:
             bound_ms, bound_by = work.bound()
@@ -223,14 +291,19 @@ def hold_kernels(p, label_size: str, stats: dict | None = None,
 
 def phase_kernels() -> dict:
     """Kernels 2-4 against their plain versions at the config-1 and the
-    2^14 shapes.  Returns per-kernel error and the times and bound of its
-    first case at the 2^14 shapes (Ajtai at r_eff = r, the u1 B-term, the
-    u2 D-term)."""
+    2^14 shapes, at small and at big q, and at the config-1 shapes at the
+    largest prime below 2^33.  Returns per-kernel error and the times and
+    bound of its first case at the 2^14 shapes (Ajtai at r_eff = r, the u1
+    B-term, the u2 D-term)."""
     from labrador_tpu_torch.params import LabradorParams
-    hold_kernels(LabradorParams(n=2, r=2), "config1")
     stats: dict = {}
-    hold_kernels(LabradorParams(n=REAL["n"], r=REAL["r"],
-                                kappa_override=REAL["kappa"]), "2^14", stats)
+    for extra, tag in (({}, ""), (BIG_Q, " big-q")):
+        hold_kernels(LabradorParams(n=2, r=2, **extra), "config1" + tag)
+        hold_kernels(LabradorParams(n=REAL["n"], r=REAL["r"],
+                                    kappa_override=REAL["kappa"], **extra),
+                     "2^14" + tag, stats)
+    top = LabradorParams(n=2, r=2, **{**BIG_Q, "q_start": TOP_Q_START})
+    hold_kernels(top, f"config1 q={top.q}", stats)
     return stats
 
 
@@ -265,6 +338,7 @@ def phase_polymul() -> dict:
     (FoldedState.phi_alpha_modq and fold at n = r = 16).  Bit-equality
     required.  Returns the config-2 case's numbers for the kernels line."""
     from labrador_tpu_torch.ops import ntt, polymul_cuda
+    from labrador_tpu_torch.ops.ring_stream import circulant
     from labrador_tpu_torch.params import LabradorParams
 
     p = LabradorParams(n=2, r=2)
@@ -342,14 +416,32 @@ def phase_polymul() -> dict:
     stats["library_ms"] = cuda_ms(call, 5)
     log(f"kernel polymul config 2 yardstick: one float64 grouped conv1d "
         f"(exact integer products, no mod q) {stats['library_ms']:.4f} ms")
+    # the serving case's yardstick: one float64 matmul of the rows by the
+    # 64 x 64 negacyclic matrix of b (exact: 64 q^2 < 2^53), b taken
+    # back from bhat and its matrix built once, outside the timed call
+    b_fixed = ntt.ntt_inv_modq(bhat_fixed, plan)[0]
+    nb = circulant(b_fixed).to(torch.float64)
+    a_f = a_s.to(torch.float64)
+
+    def serving_mm():
+        return torch.matmul(a_f, nb)
+
+    if not torch.equal(torch.remainder(serving_mm().to(torch.int64), q),
+                       bh(a_s, bhat_fixed, plan)):
+        raise AssertionError("the bhat yardstick disagrees with kernel 1")
+    log(f"kernel polymul serving yardstick: one float64 matmul "
+        f"{tuple(a_f.shape)} @ {tuple(nb.shape)} (exact integer products, no "
+        f"mod q) {cuda_ms(serving_mm, 20):.4f} ms")
     return stats
 
 
 def _kernels():
+    """Every kernel of the port, each mode of kernels 2-4 apart."""
     from labrador_tpu_torch.ops import (ajtai_cuda, cd_cuda, polymul_cuda,
                                         u1_cuda)
     return [polymul_cuda.KERNEL, ajtai_cuda.KERNEL, u1_cuda.KERNEL,
-            cd_cuda.KERNEL]
+            cd_cuda.KERNEL, ajtai_cuda.KERNEL_BIG, u1_cuda.KERNEL_BIG,
+            cd_cuda.KERNEL_BIG]
 
 
 def _reset_counts() -> None:
@@ -370,6 +462,9 @@ def _require_launched(counts: dict, names, where: str) -> None:
 
 COMMITMENT_KERNELS = ("ajtai_commit", "u1_bterm", "cd_sum")
 ALL_KERNELS = ("negacyclic_polymul",) + COMMITMENT_KERNELS
+# at big q the ring products take the CRT route (kernel 1 is small-q only,
+# as in the JAX package), so these are the big-q path's kernels
+BIG_KERNELS = ("ajtai_commit_bigq", "u1_bterm_bigq", "cd_sum_bigq")
 
 
 def phase_config1() -> None:
@@ -621,10 +716,221 @@ def phase_recursion_real(stats: dict) -> dict:
     return launches
 
 
-def _profile_folded_prove(res) -> None:
-    """A second folded prove at 2^14 under cProfile: host-clock cumulative
-    seconds of the phases and of the steps that take most of them (device
-    work shows up where the host waits for it)."""
+def _require_big_only(counts: dict, where: str) -> None:
+    """A big-q run launches the big-q kernels, and no small-q one."""
+    _require_launched(counts, BIG_KERNELS, where)
+    small = [n for n in ALL_KERNELS if counts[n]]
+    if small:
+        raise AssertionError(f"{where}: small-q kernels {small} launched "
+                             f"({counts})")
+
+
+def phase_bigq_config1() -> None:
+    """``cli --big-q`` at config 1: transcript digest, sizes and report
+    equal the JAX golden file; z with one low 16-bit limb changed (the
+    tamper of tests/test_bigq_pipeline.py) fails check 15; the big-q
+    kernels launch in prove and in verify."""
+    from labrador_tpu_torch import keys, prover, structs, verifier
+    from labrador_tpu_torch.cli import run_flow
+
+    golden = json.loads(GOLDEN_BIG.read_text())
+    cfg, gb = golden["config"], golden["base"]
+    res = run_flow(cfg["n"], cfg["r"], cfg["kappa"], cfg["seed"], "cuda",
+                   big_q=True)
+    p, proof = res.params, res.proof
+    if p.q != cfg["q"]:
+        raise AssertionError(f"--big-q modulus {p.q} != {cfg['q']}")
+    got = [structs.transcript_sha256(proof, p.q),
+           structs.transcript_size_in_bytes(proof, p.q),
+           structs.transcript_size_in_bytes(proof, p.q, fs=True), res.report]
+    want = [gb["transcript_sha256"], gb["transcript_size_in_bytes"],
+            gb["transcript_size_in_bytes_fs"], gb["verify_report"]]
+    if got != want or not all(res.report.values()):
+        raise AssertionError(f"config-1 --big-q {got} != JAX golden {want}")
+    bad_z = proof.z.clone()
+    bad_z[0, 0] = (bad_z[0, 0] >> 16 << 16) | ((bad_z[0, 0] + 1) & 0xFFFF)
+    rep_bad = verifier.verify_report(p, res.state, proof.replace(z=bad_z),
+                                     res.crs, "exact")
+    if rep_bad["c15_az_vs_ct"] or rep_bad["all"]:
+        raise AssertionError("--big-q: tampered z was not rejected")
+
+    kv = keys.split(keys.key(cfg["seed"]), 3)[2]
+    _reset_counts()
+    prover.prove(p, res.witness, res.state, res.crs, kv, "exact")
+    in_prove = _counts()
+    _reset_counts()
+    verifier.verify_report(p, res.state, proof, res.crs, "exact")
+    in_verify = _counts()
+    _sync()
+    _require_big_only(in_prove, "config-1 --big-q prove")
+    _require_big_only(in_verify, "config-1 --big-q verify")
+    log(f"config1 --big-q (q = {p.q}): transcript sha256 {got[0]} == JAX "
+        f"golden; size {got[1]} B (fs {got[2]} B) == golden; all checks "
+        f"true; tampered z rejected (c15)")
+    log(f"config1 --big-q: launches in prove {in_prove}, in verify "
+        f"{in_verify}")
+    log(f"config1 --big-q: prove {res.prove_s * 1e3:.2f} ms, verify "
+        f"{res.verify_s * 1e3:.2f} ms (first run, host clock after sync)")
+
+
+def _nonzero_share(x: torch.Tensor) -> float:
+    return float((x != 0).double().mean())
+
+
+def phase_bigq_real() -> None:
+    """``cli --big-q`` at 2^14 (n = r = 16, kappa = 256): a realistic
+    witness (more than half of its entries nonzero, unlike q = 8191's),
+    prove and verify with every check true through the big-q kernels."""
+    from labrador_tpu_torch import structs
+    from labrador_tpu_torch.cli import run_flow
+
+    _reset_counts()
+    res = run_flow(**REAL, seed=42, device="cuda", big_q=True)
+    launches = _counts()
+    _require_big_only(launches, "2^14 --big-q prove + verify")
+    p = res.params
+    share = _nonzero_share(res.witness)
+    if share <= 0.5:
+        raise AssertionError(f"2^14 --big-q witness only {share:.3f} nonzero")
+    if not (bool(res.proof.jl_ok) and bool(res.proof.b_pp_ok)):
+        raise AssertionError("2^14 --big-q prover self-checks failed")
+    if not all(res.report.values()):
+        failed = [k for k, v in res.report.items() if not v]
+        raise AssertionError(f"2^14 --big-q verification failed: {failed}")
+    runs = [run_flow(**REAL, seed=42, device="cuda", big_q=True)
+            for _ in range(TIMED_RUNS)]
+    prove_s = statistics.median(r.prove_s for r in runs)
+    verify_s = statistics.median(r.verify_s for r in runs)
+    size = structs.transcript_size_in_bytes(res.proof, p.q)
+    size_fs = structs.transcript_size_in_bytes(res.proof, p.q, fs=True)
+    log(f"2^14 --big-q (q = {p.q}, t1={p.t_1}/b1={p.b_1}, "
+        f"t2={p.t_2}/b2={p.b_2}): witness {share:.4f} nonzero; all checks "
+        f"true; launches {launches}")
+    log(f"2^14 --big-q: prove {prove_s * 1e3:.2f} ms, verify "
+        f"{verify_s * 1e3:.2f} ms (median of {TIMED_RUNS} after one warm-up,"
+        f" host clock after sync); first run prove {res.prove_s * 1e3:.2f} "
+        f"ms verify {res.verify_s * 1e3:.2f} ms")
+    log(f"2^14 --big-q: proof {size} B = {size / 1024:.2f} KB (fs metric "
+        f"{size_fs} B)")
+
+
+def phase_bigq_recursion_config1() -> None:
+    """``cli --big-q -R --kappa 16`` at config 1 (the golden file's
+    recursion part, generated at kappa = 16 to keep its JAX regeneration
+    short): base and folded digests, folded params and fs size equal the
+    JAX golden file; the folded residual is 0 and a tampered folded
+    witness gives a nonzero one; the big-q kernels launch in the folded
+    prove and verify."""
+    from labrador_tpu_torch import recursion, structs
+    from labrador_tpu_torch.cli import run_flow
+
+    g = json.loads(GOLDEN_BIG.read_text())["recursion"]
+    cfg, gb, gf = g["config"], g["base"], g["folded"]
+    _reset_counts()
+    res = run_flow(cfg["n"], cfg["r"], cfg["kappa"], cfg["seed"], "cuda",
+                   recursion=True, big_q=True)
+    launches = _counts()
+    _require_big_only(launches, "config-1 --big-q -R")
+    _check_folded(res, "config-1 --big-q -R")
+    f = res.folded
+    p, p2 = res.params, f.params
+    got = {
+        "base sha256": structs.transcript_sha256(res.proof, p.q),
+        "base fs size": structs.transcript_size_in_bytes(res.proof, p.q,
+                                                         fs=True),
+        "folded sha256": structs.transcript_sha256(f.proof, p2.q),
+        "folded fs size": structs.transcript_size_in_bytes(f.proof, p2.q,
+                                                           fs=True),
+        "folded shape": [p2.n, p2.r, p2.k_count, p2.kappa, p2.beta_override],
+    }
+    want = {
+        "base sha256": gb["transcript_sha256"],
+        "base fs size": gb["transcript_size_in_bytes_fs"],
+        "folded sha256": gf["transcript_sha256"],
+        "folded fs size": gf["transcript_size_in_bytes_fs"],
+        "folded shape": [gf[k] for k in ("n", "r", "k_count", "kappa",
+                                         "beta_override")],
+    }
+    for key in got:
+        if got[key] != want[key]:
+            raise AssertionError(f"config-1 --big-q -R {key}: {got[key]} != "
+                                 f"JAX golden {want[key]}")
+    w_bad = f.witness.clone()
+    w_bad[0, 0, 0] += 1
+    if recursion.folded_residual(f.state, w_bad, p2) == 0:
+        raise AssertionError("--big-q -R: tampered folded witness accepted")
+    log(f"config1 --big-q -R (kappa {cfg['kappa']}): base sha256 "
+        f"{got['base sha256']}, folded sha256 {got['folded sha256']} == JAX "
+        f"golden; folded n'={p2.n} r'={p2.r} k'={p2.k_count}, fs size "
+        f"{got['folded fs size']} B == golden; residual 0, tampered witness "
+        f"rejected; all checks true; launches {launches}")
+    log(f"config1 --big-q -R: prove {res.prove_s * 1e3:.2f} ms, verify "
+        f"{res.verify_s * 1e3:.2f} ms, fold {f.fold_s * 1e3:.2f} ms, folded "
+        f"prove {f.prove_s * 1e3:.2f} ms, folded verify "
+        f"{f.verify_s * 1e3:.2f} ms (first run, host clock after sync)")
+
+
+def phase_bigq_recursion_real(stats: dict) -> dict:
+    """``cli --big-q -R`` at the 2^14 base (n = r = 16, kappa = 256): fold,
+    prove and verify with every check true, fs sizes and peak memory; then
+    kernels 2-4 in big-q mode held bit-equal to their plain versions at
+    the folded instance's shapes on random operands at their bounds, their
+    errors merged into ``stats``; and the fold with mu = 16, the size
+    record of the TPU rounds.  Returns the launches of the run, the kernels
+    line's counts of the big-q kernels."""
+    from labrador_tpu_torch import keys, prover, recursion, structs, verifier
+    from labrador_tpu_torch.cli import FOLDED_CRS_XOR, run_flow
+    from labrador_tpu_torch.crs import CRS
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    res = run_flow(**REAL, seed=42, device="cuda", recursion=True,
+                   big_q=True)
+    launches = _counts()
+    _require_big_only(launches, "2^14 --big-q -R")
+    _check_folded(res, "2^14 --big-q -R")
+    f = res.folded
+    p, p2 = res.params, f.params
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sizes = (structs.transcript_size_in_bytes(res.proof, p.q, fs=True),
+             structs.transcript_size_in_bytes(f.proof, p2.q, fs=True))
+    log(f"2^14 --big-q -R: all checks true; witness "
+        f"{_nonzero_share(res.witness):.4f} nonzero, folded witness "
+        f"{_nonzero_share(f.witness):.4f}; folded n'={p2.n} r'={p2.r} "
+        f"k'={p2.k_count} kappa'={p2.kappa} beta'={p2.beta_override} "
+        f"t1'={p2.t_1}/b1'={p2.b_1} t2'={p2.t_2}/b2'={p2.b_2}; launches "
+        f"{launches}")
+    log(f"2^14 --big-q -R: prove {res.prove_s * 1e3:.2f} ms, verify "
+        f"{res.verify_s * 1e3:.2f} ms, fold {f.fold_s * 1e3:.2f} ms, folded "
+        f"prove {f.prove_s * 1e3:.2f} ms, folded verify "
+        f"{f.verify_s * 1e3:.2f} ms (host clock after sync); peak device "
+        f"memory {peak_gb:.2f} GB")
+    log(f"2^14 --big-q -R: fs size base {sizes[0]} B -> folded {sizes[1]} B")
+    _profile_folded_prove(res, "2^14 --big-q -R")
+    hold_kernels(p2, "2^14 -R' big-q", stats, plain_reps=1)
+
+    # the fold of the TPU rounds' size record (PERF.md): mu = 16 witness
+    # vectors for the digit stream instead of the CLI's round(sqrt(.))
+    t0 = time.perf_counter()
+    p3, w3, s3, _ = recursion.fold(p, res.state, res.proof, res.crs, mu=16)
+    crs3 = CRS.create(p3, seed=42 ^ FOLDED_CRS_XOR)
+    proof3 = prover.prove(p3, w3, s3, crs3, keys.fold_in(res.verifier_key, 1),
+                          decomp_mode="exact")
+    rep3 = verifier.verify_report(p3, s3, proof3, crs3, decomp_mode="exact")
+    _sync()
+    if not all(rep3.values()):
+        raise AssertionError(f"2^14 --big-q -R mu=16 failed: {rep3}")
+    log(f"2^14 --big-q -R mu=16: folded n'={p3.n} r'={p3.r}, all checks "
+        f"true; fs size {sizes[0]} B -> "
+        f"{structs.transcript_size_in_bytes(proof3, p3.q, fs=True)} B "
+        f"(fold + prove + verify {(time.perf_counter() - t0) * 1e3:.2f} ms)")
+    return launches
+
+
+def _profile_folded_prove(res, label: str = "2^14 -R") -> None:
+    """A second folded prove under cProfile: host-clock cumulative seconds
+    of the phases and of the steps that take most of them (device work
+    shows up where the host waits for it)."""
     import cProfile
     import pstats
 
@@ -647,7 +953,7 @@ def _profile_folded_prove(res) -> None:
              "jl_project", "sigma_inv_pi", "aggregate_phi_pp",
              "phi_alpha_modq", "_alpha_contract_b", "ajtai_commit",
              "u1_from_digits", "u2_from_digits", "gram_hat")
-    log(f"2^14 -R folded prove under cProfile: {wall * 1e3:.2f} ms wall; "
+    log(f"{label} folded prove under cProfile: {wall * 1e3:.2f} ms wall; "
         "cumulative s: " + ", ".join(f"{n} {cum.get(n, 0.0):.3f}"
                                      for n in names))
 
@@ -661,6 +967,11 @@ def main() -> int:
     phase_real()
     phase_recursion_config1()
     launches = phase_recursion_real(stats)
+    phase_bigq_config1()
+    phase_bigq_real()
+    phase_bigq_recursion_config1()
+    launches.update({k: v for k, v in phase_bigq_recursion_real(stats).items()
+                     if k in BIG_KERNELS})
     rows = []
     for k in _kernels():
         st = stats[k.name]

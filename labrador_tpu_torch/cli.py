@@ -4,13 +4,15 @@
 Usage:
     python -m labrador_tpu_torch.cli [--verbose] [--device {cuda,cpu}]
                                      [--n N] [--r R] [--kappa K] [--seed S]
-                                     [-R]
+                                     [--big-q] [-R]
 
 ``--device cuda`` (the default) runs the kernels and fails if no card is
-present; ``--device cpu`` runs their plain PyTorch versions.  ``-R`` proves
-with exact digits, folds the proof into a recursive instance
-(``recursion.fold``) and proves and verifies that too, as the JAX CLI
-does.  Same seeds give the same transcripts as the JAX package.
+present; ``--device cpu`` runs their plain PyTorch versions.  ``--big-q``
+takes the 2^32-scale modulus q = 4294967311 (``q_start = 2^32 - 1``) with
+exact digits, as the JAX CLI does.  ``-R`` proves with exact digits, folds
+the proof into a recursive instance (``recursion.fold``) and proves and
+verifies that too.  Same seeds give the same transcripts as the JAX
+package.
 """
 
 from __future__ import annotations
@@ -28,10 +30,12 @@ from .params import LabradorParams
 # the JAX CLI's CRS seed derivations from --seed (base, folded instance)
 CRS_SEED_MULT = 0x9E3779B97F4A7C15
 FOLDED_CRS_XOR = 0xF01D
+# --big-q: the modulus search start of the reference's commented
+# 2^32-scale configuration (constants.rs:196), q = 4294967311
+BIG_Q_START = (1 << 32) - 1
 
 _NOT_PORTED = {
     "fs": "Fiat-Shamir mode (--fs) belongs to the FS slice",
-    "big_q": "--big-q belongs to the big-q slice",
     "phases": "--phases belongs to the checkpoint slice",
     "ckpt": "--ckpt belongs to the checkpoint slice",
 }
@@ -84,17 +88,25 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def make_params(n: int, r: int, kappa: int = 0, recursion: bool = False,
+                big_q: bool = False) -> LabradorParams:
+    """The JAX CLI's parameters: exact digits with -R or --big-q."""
+    return LabradorParams(n=n, r=r, kappa_override=kappa,
+                          exact_digits=recursion or big_q,
+                          **({"q_start": BIG_Q_START} if big_q else {}))
+
+
 def run_flow(n: int = 2, r: int = 2, kappa: int = 0, seed: int = 42,
              device="cuda", verbose: bool = False,
-             recursion: bool = False) -> FlowResult:
+             recursion: bool = False, big_q: bool = False) -> FlowResult:
     """Witness, CRS, state, prove, verify_report — the CLI's flow; with
-    ``recursion`` (exact digits) also ``fold_flow`` on the proof."""
+    ``recursion`` (exact digits) also ``fold_flow`` on the proof; with
+    ``big_q`` at the 2^32-scale modulus."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available")
-    p = LabradorParams(n=n, r=r, kappa_override=kappa,
-                       exact_digits=recursion)
-    decomp_mode = "exact" if recursion else "reference"
+    p = make_params(n, r, kappa, recursion, big_q)
+    decomp_mode = "exact" if (recursion or big_q) else "reference"
     if verbose:
         print("Welcome to the LaBRADOR Proof System (PyTorch + CUDA port)!")
         print("=====================================\n")
@@ -158,7 +170,8 @@ def main(argv=None) -> int:
                     help="override the commitment rank (0 = reference n*d)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--fs", action="store_true")
-    ap.add_argument("--big-q", action="store_true")
+    ap.add_argument("--big-q", action="store_true",
+                    help="2^32-scale modulus q = 4294967311, exact digits")
     ap.add_argument("-R", "--recursion", action="store_true",
                     help="fold the proof into a recursive instance and "
                          "prove+verify that too")
@@ -170,7 +183,7 @@ def main(argv=None) -> int:
             ap.error(f"not yet ported: {why}")
 
     res = run_flow(args.n, args.r, args.kappa, args.seed, args.device,
-                   args.verbose, args.recursion)
+                   args.verbose, args.recursion, args.big_q)
     proof, p = res.proof, res.params
     if not bool(proof.jl_ok):
         print("Error: JL projection failed after max retries")
@@ -186,7 +199,7 @@ def main(argv=None) -> int:
         print("Success: Proof Verified!")
         print("=========================")
         size = structs.transcript_size_in_bytes(proof, p.q)
-        print(f"Size of proof: {size / 1024:.2f} KB")
+        print(f"Size of proof: {size / 1024:.2f} KB ({size} B)")
         print(f"prove: {res.prove_s:.3f}s  verify: {res.verify_s:.3f}s")
     if args.recursion:
         return _report_folded(res, args.verbose)
@@ -211,7 +224,7 @@ def _report_folded(res: FlowResult, verbose: bool) -> int:
         size = structs.transcript_size_in_bytes(res.proof, p.q)
         size2 = structs.transcript_size_in_bytes(f.proof, p2.q)
         print(f"Recursive instance: n'={p2.n} r'={p2.r} k'={p2.k_count} "
-              f"(folded in {f.fold_s + f.prove_s + f.verify_s:.2f}s)")
+              f"kappa'={p2.kappa} (folded in {f.fold_s + f.prove_s + f.verify_s:.2f}s)")
         print(f"Proof size: base {size / 1024:.2f} KB -> folded "
               f"{size2 / 1024:.2f} KB")
         print("Success: recursive proof verified!")

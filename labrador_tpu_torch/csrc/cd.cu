@@ -2,7 +2,7 @@
 // polynomials over the (i <= j, k) triangle stream.
 //
 // Replaces labrador_tpu/ops/cd_pallas.py: cd_sum_pallas (the pallas_call at
-// line 183).  Computes
+// line 183), small-q and big-q (line 128) branches.  Computes
 //     out[row] = sum_{lin < L} M_lin[row] (*) dig[lin]   mod q,
 // lin = tri * t_used + k over L = n_tri * t_used stream entries, with the
 // column vector M_lin (kappa_2 ring elements) at
@@ -13,7 +13,8 @@
 // threefry.cuh.  The stream is not padded: ragged chunks stop at L.
 // Bounds on the H100: integer issue (one Threefry + 64-bit modulo per
 // entry of the kappa_2 x L x d column block, 64 products per entry).
-// Shape limits (checked by ops/cd_cuda.py): d = 64, q <= 32513,
+// Shape limits (checked by ops/cd_cuda.py): d = 64, q <= 32513 or
+// 2^32 < q < 2^33 (signed digits),
 // L and kappa_2 below 2^31.
 #include "threefry.cuh"
 

@@ -9,10 +9,23 @@
 // from a 64-bit offset that each kernel's offset functor computes), and
 // dig[j][l] is a small witness or digit polynomial.  The Pallas kernels
 // compute the same sums as int8 MXU matmuls against a circulant, per CRT
-// prime, with a Garner epilogue; here, at small q, one int64 accumulator
-// per output coefficient is exact and needs no CRT at all:
-//   |M| < q <= 32513 < 2^15 and |centred dig| <= q/2 < 2^14, so each product
-//   fits int32 (< 2^29) and an int64 sum of up to 2^34 of them is exact.
+// prime, with a Garner epilogue; here one wide accumulator per output
+// coefficient is exact and needs no CRT at all:
+//   * small q (SMALL): |M| < q <= 32513 < 2^15 and |centred dig| <= q/2 <
+//     2^14, so each product fits int32 (< 2^29) and an int64 sum of up to
+//     2^34 of them is exact;
+//   * big q, 2^32 < q < 2^33 (the 2^32-scale modulus is 4294967311): entry
+//     and operand are both centred, |M|, |dig| <= q/2 (the wrapper asserts
+//     the operand range), so every operand of the JAX convention is
+//     admitted: a signed witness up to 2^31 in magnitude, signed digits,
+//     canonical residues.  Below BIG_NARROW_Q_END = 2^32 + 2^30 (BIG) q/2 <
+//     1.25 * 2^31 and a product is below 1.5625 * 2^62, an int64 multiply;
+//     above it (BIG_WIDE) a product reaches 2^64 and is taken as __int128
+//     (mul_wide), about twice the work per product, so the kernel keeps the
+//     int64 product where it fits.  Products are summed in __int128 and
+//     reduced mod q after every chunk of at most LC * D = 512 products per
+//     thread, so the accumulator stays below 2^73 and its reduction
+//     (mod_i128) below 2^43.
 //
 // Design (simple and right first; tensor-core limb products, TMA and
 // tiling for speed are later work):
@@ -31,7 +44,9 @@
 //     mod q (blocks run in no order, so nothing carries between them).
 // What bounds it on the H100: integer issue rate — one Threefry block and a
 // 64-bit modulo per CRS entry, and an int32 multiply + int64 add per
-// product; global traffic is only the digits and the output.
+// product at small q (a 64-bit or 128-bit product + 128-bit add at big
+// q); global
+// traffic is only the digits and the output.
 #pragma once
 
 #include <cstdint>
@@ -70,25 +85,79 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
   o1 = x1;
 }
 
-// CRS entry at a 64-bit offset: the Threefry output (x0 * 2^32 + x1) mod q,
-// which is what prg.uniform_mod_q computes at small q.
-__device__ __forceinline__ int32_t crs_coeff(uint32_t k0, uint32_t k1,
+// Largest small-q modulus (ops/modmath.py P_MAX); the wrappers admit only
+// q <= SMALL_Q_MAX or 2^32 < q < 2^33.
+constexpr int64_t SMALL_Q_MAX = 32513;
+// Big-q moduli below this take int64 products (bounds at the top).
+constexpr int64_t BIG_NARROW_Q_END = (int64_t{1} << 32) + (int64_t{1} << 30);
+
+// The kernel's modes, chosen by q at launch (bounds at the top).
+enum RingMode { SMALL, BIG, BIG_WIDE };
+
+// CRS entry at a 64-bit offset: the Threefry output (x0 * 2^32 + x1) mod q
+// in [0, q), which is what prg.uniform_mod_q computes at any q.
+__device__ __forceinline__ int64_t crs_coeff(uint32_t k0, uint32_t k1,
                                              uint64_t off, uint64_t q) {
   uint32_t x0, x1;
   threefry2x32(k0, k1, static_cast<uint32_t>(off >> 32),
                static_cast<uint32_t>(off), x0, x1);
-  return static_cast<int32_t>(((static_cast<uint64_t>(x0) << 32) | x1) % q);
+  return static_cast<int64_t>(((static_cast<uint64_t>(x0) << 32) | x1) % q);
+}
+
+// Operand and accumulator types of the modes (bounds at the top).
+template <int MODE> struct RingTypes {
+  using Entry = int64_t;    // centred M and dig, both <= q/2 < 2^32
+  using Acc = __int128;
+};
+template <> struct RingTypes<SMALL> {
+  using Entry = int32_t;    // M in [0, q), centred dig: below 2^15
+  using Acc = int64_t;
+};
+
+// The full product of two values below 2^32 in magnitude (BIG_WIDE): low
+// word by a 64-bit multiply, high word by __mul64hi.
+__device__ __forceinline__ __int128 mul_wide(int64_t a, int64_t b) {
+  const uint64_t lo = static_cast<uint64_t>(a) * static_cast<uint64_t>(b);
+  const int64_t hi = __mul64hi(a, b);
+  return static_cast<__int128>(
+      (static_cast<unsigned __int128>(static_cast<uint64_t>(hi)) << 64) | lo);
+}
+
+// v mod q in [0, q) for |v| < 2^73 (|v >> 64| <= 2^9): v = hi 2^64 + lo is
+// congruent to hi * c64 + lo with c64 = 2^64 mod q < 2^33, so every term
+// stays below 2^43 in int64.
+__device__ __forceinline__ int64_t mod_i128(__int128 v, int64_t q,
+                                            int64_t c64) {
+  const int64_t hi = static_cast<int64_t>(v >> 64);
+  const uint64_t lo = static_cast<uint64_t>(v);
+  const int64_t t = (hi * c64 + static_cast<int64_t>(
+      lo % static_cast<uint64_t>(q))) % q;
+  return t < 0 ? t + q : t;
+}
+
+__device__ __forceinline__ int64_t acc_mod(int64_t v, int64_t q, int64_t) {
+  const int64_t t = v % q;
+  return t < 0 ? t + q : t;
+}
+
+__device__ __forceinline__ int64_t acc_mod(__int128 v, int64_t q,
+                                           int64_t c64) {
+  return mod_i128(v, q, c64);
 }
 
 // part[s][j][row][k] = (sum over split s of M(l, row) (*) dig[j][l])[k] mod q.
-// dig: (nrhs, L, D) residues in [0, q); part: (splits, nrhs, rows, D).
-template <class Off>
+// dig: (nrhs, L, D) residues in [0, q) or signed values of magnitude at
+// most q/2 (both centred alike); part: (splits, nrhs, rows, D).
+template <class Off, int MODE>
 __global__ void __launch_bounds__(THREADS)
 ring_stream_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
                    int nrhs, int L, int rows, int64_t q, uint32_t k0,
                    uint32_t k1, Off off, int l_per_split) {
-  __shared__ int32_t m_sh[LC][D];
-  __shared__ int32_t ext[GROUPS][LC][2 * D];
+  constexpr bool BIG_Q = MODE != SMALL;
+  using Entry = typename RingTypes<MODE>::Entry;
+  using Acc = typename RingTypes<MODE>::Acc;
+  __shared__ Entry m_sh[LC][D];
+  __shared__ Entry ext[GROUPS][LC][2 * D];
   __shared__ int64_t red[GROUPS][D];
   const int row = blockIdx.x;
   const int s = blockIdx.y;
@@ -104,54 +173,67 @@ ring_stream_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
   const int l_begin = s * l_per_split;
   const int l_end = min(L, l_begin + l_per_split);
   const int64_t half_q = q / 2;
+  // 2^64 mod q (only the big mode reads it)
+  const int64_t c64 = static_cast<int64_t>(
+      (0 - static_cast<uint64_t>(q)) % static_cast<uint64_t>(q));
 
-  int64_t acc = 0;
+  Acc acc = 0;
   for (int l0 = l_begin; l0 < l_end; l0 += LC) {
     const int nl = min(LC, l_end - l0);
     for (int e = tid; e < LC * D; e += THREADS) {
       const int l = e / D, c = e % D;
-      m_sh[l][c] = (l < nl)
-          ? crs_coeff(k0, k1, off(l0 + l, row) + static_cast<uint64_t>(c),
-                      static_cast<uint64_t>(q))
-          : 0;
+      Entry m = 0;
+      if (l < nl) {
+        const int64_t x = crs_coeff(
+            k0, k1, off(l0 + l, row) + static_cast<uint64_t>(c),
+            static_cast<uint64_t>(q));
+        m = static_cast<Entry>(BIG_Q && x > half_q ? x - q : x);
+      }
+      m_sh[l][c] = m;
     }
     for (int e = tid; e < n_ext * LC * D; e += THREADS) {
       const int gg = e / (LC * D), l = (e / D) % LC, c = e % D;
       const int jj = split_l ? 0 : blockIdx.z * GROUPS + gg;
-      int32_t v = 0;
+      Entry v = 0;
       if (l < nl && jj < nrhs) {
         const int64_t x = dig[(static_cast<int64_t>(jj) * L + l0 + l) * D + c];
-        v = static_cast<int32_t>(x > half_q ? x - q : x);
+        v = static_cast<Entry>(x > half_q ? x - q : x);
       }
       ext[gg][l][c + D] = v;
       ext[gg][l][c] = -v;
     }
     __syncthreads();
     for (int l = l_first; l < nl; l += l_step) {
-      const int32_t* e = &ext[eg][l][k + D];       // e[-i] = ext[k - i + D]
+      const Entry* e = &ext[eg][l][k + D];         // e[-i] = ext[k - i + D]
 #pragma unroll 16
       for (int i = 0; i < D; ++i) {
-        acc += static_cast<int64_t>(m_sh[l][i] * e[-i]);
+        if constexpr (MODE == BIG_WIDE) {
+          acc += mul_wide(m_sh[l][i], e[-i]);
+        } else {  // int32 (SMALL) or int64 (BIG) product, bounds at the top
+          acc += static_cast<Acc>(m_sh[l][i] * e[-i]);
+        }
       }
     }
+    if (BIG_Q) acc = acc_mod(acc, q, c64);  // <= 512 products since the last
     __syncthreads();
   }
 
+  // each thread's sum as a residue in [0, q); four of them sum below 2^35
+  const int64_t res = acc_mod(acc, q, c64);
   const int64_t base = (static_cast<int64_t>(s) * nrhs + j) * rows + row;
   if (split_l) {
-    red[g][k] = acc;
+    red[g][k] = res;
     __syncthreads();
     if (g == 0) {
-      int64_t t = (red[0][k] + red[1][k] + red[2][k] + red[3][k]) % q;
-      part[base * D + k] = t < 0 ? t + q : t;
+      part[base * D + k] = (red[0][k] + red[1][k] + red[2][k] + red[3][k]) % q;
     }
   } else if (j < nrhs) {
-    const int64_t t = acc % q;
-    part[base * D + k] = t < 0 ? t + q : t;
+    part[base * D + k] = res;
   }
 }
 
-// out[i] = sum_s part[s][i] mod q over n outputs (part entries in [0, q)).
+// out[i] = sum_s part[s][i] mod q over n outputs (part entries in [0, q)):
+// at most 65535 splits of terms below q < 2^33 sum below 2^49 in int64.
 __global__ void reduce_splits_kernel(const int64_t* __restrict__ part,
                                      int64_t* __restrict__ out, int splits,
                                      int64_t n, int64_t q) {
@@ -173,8 +255,16 @@ cudaError_t launch_ring_stream(const int64_t* dig, int64_t* part,
   const int per = (L + splits - 1) / splits;
   const int l_per_split = (per + LC - 1) / LC * LC;
   const dim3 grid(rows, splits, zb);
-  ring_stream_kernel<Off><<<grid, THREADS, 0, stream>>>(
-      dig, part, nrhs, L, rows, q, k0, k1, off, l_per_split);
+  if (q <= SMALL_Q_MAX) {
+    ring_stream_kernel<Off, SMALL><<<grid, THREADS, 0, stream>>>(
+        dig, part, nrhs, L, rows, q, k0, k1, off, l_per_split);
+  } else if (q < BIG_NARROW_Q_END) {
+    ring_stream_kernel<Off, BIG><<<grid, THREADS, 0, stream>>>(
+        dig, part, nrhs, L, rows, q, k0, k1, off, l_per_split);
+  } else {
+    ring_stream_kernel<Off, BIG_WIDE><<<grid, THREADS, 0, stream>>>(
+        dig, part, nrhs, L, rows, q, k0, k1, off, l_per_split);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int64_t n = static_cast<int64_t>(nrhs) * rows * D;

@@ -1,7 +1,7 @@
 // The u1 outer commitment's B-term with the B matrices expanded in-kernel.
 //
 // Replaces labrador_tpu/ops/u1_pallas.py: u1_bterm_pallas (the pallas_call
-// at line 164).  Computes
+// at line 164), small-q and big-q (line 104) branches.  Computes
 //     out[row] = sum_{m < r*t_1} sum_{col < kappa} B_m[row][col] (*) t_m[col]
 // mod q, as one stream over l = m * kappa + col (the digit stream of
 // t_dig (t_1, r, kappa, d) with m = i * t_1 + k).  B_m[row][col][c] sits at
@@ -11,7 +11,8 @@
 // Bounds on the H100: integer issue — the kappa_1 x (r t_1 kappa d) B
 // entries are each generated once (Threefry + 64-bit modulo), and each
 // feeds 64 int32 products; global traffic is only the digit stream.
-// Shape limits (checked by ops/u1_cuda.py): d = 64, q <= 32513,
+// Shape limits (checked by ops/u1_cuda.py): d = 64, q <= 32513 or
+// 2^32 < q < 2^33 (signed digits),
 // r * t_1 * kappa below 2^31; the stream is split over grid.y.
 #include "threefry.cuh"
 

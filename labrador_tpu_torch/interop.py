@@ -3,7 +3,11 @@
 The caller converts with ``np.asarray`` (and ``jax.random.key_data`` for a
 key, plain ints for params and a recursion layout); these functions build
 the port's objects from them, so both packages can be given the same
-instance, a folded one included.  The port never sees a JAX type.
+instance, a folded one included, at small and at big q.  A big-q field of
+the JAX package is a two-limb ``Zq2(hi, lo)`` pair; the caller may pass it
+as it is (or as any pair with ``hi`` and ``lo``), and it becomes one int64
+tensor (hi << 16) | lo.  Signed fields (big-q challenges and digits) stay
+signed.  The port never imports a JAX type.
 """
 
 from __future__ import annotations
@@ -21,8 +25,11 @@ from .structs import State, Transcript
 
 
 def tensor(arr, device="cuda") -> torch.Tensor:
-    """numpy array -> tensor (a copy): integer residues as int64, int8 and
-    bool kept."""
+    """numpy array, or a two-limb (hi, lo) pair with those attributes ->
+    tensor (a copy): integer residues as int64, int8 and bool kept."""
+    if hasattr(arr, "hi") and hasattr(arr, "lo"):
+        arr = (np.asarray(arr.hi, np.int64) << 16) | np.asarray(arr.lo,
+                                                                np.int64)
     a = np.asarray(arr)
     if a.dtype not in (np.int8, np.bool_):
         a = a.astype(np.int64)
@@ -55,7 +62,8 @@ def transcript_from_numpy(fields: dict, device="cuda") -> Transcript:
 
 def params_from_fields(fields: dict) -> LabradorParams:
     """LabradorParams from the constructor fields of a JAX LabradorParams
-    (n, r, q, d, k_count, l_count, q_start and the three overrides)."""
+    (n, r, q, d, k_count, l_count, q_start and the three overrides; q_start
+    carries a big-q configuration)."""
     return LabradorParams(**{f.name: fields[f.name]
                              for f in dataclasses.fields(LabradorParams)
                              if f.init})

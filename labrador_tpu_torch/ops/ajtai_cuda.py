@@ -1,11 +1,13 @@
 """Ajtai commitment t = A s: the CUDA kernel (``csrc/ajtai.cu``) and its
 plain PyTorch version.
 
-Replaces ``labrador_tpu/ops/ajtai_pallas.py`` (``ajtai_commit_pallas``).
-A is the virtual CRS matrix (kappa, n, d) at offset row * n * d; it is
-expanded in the kernel's registers and never stored.  The wrapper launches
-the kernel for CUDA tensors and takes the plain version only for CPU
-tensors.
+Replaces ``labrador_tpu/ops/ajtai_pallas.py`` (``ajtai_commit_pallas``),
+both its branches: small q, and the 2^32-scale modulus (``big`` in the
+Pallas kernel, ``circulant_limbs_big``), whose launches count in
+``KERNEL_BIG``.  A is the virtual CRS matrix (kappa, n, d) at offset
+row * n * d; it is expanded in the kernel's registers and never stored.
+The wrapper launches the kernel for CUDA tensors and takes the plain
+version only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -13,17 +15,24 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .ring_stream import (check_small_q, launch_shape, ring_stream_plain)
+from .ring_stream import (check_big_operand, check_q, launch_shape,
+                          ring_stream_plain)
+from .zq import is_big
 
 KERNEL = cuda_lib.KernelInfo(
     name="ajtai_commit",
     source="labrador_tpu_torch/csrc/ajtai.cu",
     replaces="labrador_tpu/ops/ajtai_pallas.py:234")
+KERNEL_BIG = cuda_lib.KernelInfo(
+    name="ajtai_commit_bigq",
+    source="labrador_tpu_torch/csrc/ajtai.cu",
+    replaces="labrador_tpu/ops/ajtai_pallas.py:173")
 
 
 def ajtai_commit(crs, witness: torch.Tensor) -> torch.Tensor:
     """t (r_eff, kappa, d) mod q for witness (r_eff, n, d) residues in
-    [0, q); r_eff is the witness's own leading dim (r in proving, 1 for
+    [0, q) or signed values of magnitude at most q/2 (the big-q witness
+    convention); r_eff is the witness's own leading dim (r in proving, 1 for
     the verifier's check 15)."""
     if witness.is_cuda:
         return _launch(crs, witness)
@@ -45,9 +54,10 @@ def ajtai_commit_plain(crs, witness: torch.Tensor) -> torch.Tensor:
 
 def _launch(crs, witness: torch.Tensor) -> torch.Tensor:
     p = crs.params
-    check_small_q(p.q, p.d)
+    check_q(p.q, p.d)
     r_eff = witness.shape[0]
     cuda_lib.require_cuda_operand(witness, "witness", (r_eff, p.n, p.d))
+    check_big_operand(witness, p.q, "witness")
     if r_eff * p.kappa * p.d >= 1 << 31 or p.n * p.d >= 1 << 31:
         raise ValueError("Ajtai shape beyond the kernel's int32 indexing")
     splits = launch_shape(p.kappa, r_eff, p.n)
@@ -61,5 +71,5 @@ def _launch(crs, witness: torch.Tensor) -> torch.Tensor:
         p.kappa, p.q, crs.key[0], crs.key[1], splits,
         cuda_lib.stream_ptr(witness.device))
     cuda_lib.check(err)
-    KERNEL.launches += 1
+    (KERNEL_BIG if is_big(p.q) else KERNEL).launches += 1
     return out

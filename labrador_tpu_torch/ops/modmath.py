@@ -9,6 +9,9 @@ exact is said next to each function:
 * ``matmul_mod`` contracts in float64, which is exact while every partial
   sum stays below 2**53 (CUDA has no integer ``matmul``); the contraction is
   chunked so that bound holds and is asserted.
+* ``mulmod`` is the one product of two full residues: at the 2^32-scale
+  modulus a plain ``x * y`` of residues below q < 2^33 would wrap int64
+  silently, so it splits one operand into 16-bit halves.
 * ``u64_sum`` / ``sum_sq_u64`` keep the JAX contract (exact sum, wrapping
   mod 2**64) by summing 31-bit halves in int64 and returning Python ints.
 """
@@ -17,9 +20,11 @@ from __future__ import annotations
 
 import torch
 
-# Largest single-limb modulus of the JAX package (``labrador_tpu.ops.modmath``):
-# the small-q slice ported here covers q <= P_MAX, every CRT prime is below it.
+# Largest single-limb modulus of the JAX package (``labrador_tpu.ops.modmath``);
+# every CRT prime is below it.  Moduli q <= P_MAX are "small q"; the big-q
+# range is 2^32 < q <= Q_BIG_MAX (``labrador_tpu.ops.zq``).
 P_MAX = 32513
+Q_BIG_MAX = (1 << 33) - 1
 
 F64_EXACT = 1 << 53
 _U64 = (1 << 64) - 1
@@ -32,6 +37,19 @@ def mod_pos(x: torch.Tensor, m) -> torch.Tensor:
     broadcasts against x (a per-prime modulus vector is passed already shaped
     (P, 1, ..., 1) by ``per_prime``)."""
     return torch.remainder(x, m)
+
+
+def mulmod(x: torch.Tensor, y, q: int) -> torch.Tensor:
+    """x * y mod q for residues (or signed values) |x|, |y| < 2^33 and
+    q <= Q_BIG_MAX; ``y`` a tensor or a Python int.  y = y_hi 2^16 + y_lo
+    keeps every partial product below 2^50, so nothing wraps int64 at big
+    q; at q < 2^31 one product is exact and is taken directly."""
+    assert q <= Q_BIG_MAX, f"q={q} beyond the 2^33 residue range"
+    if q < (1 << 31):
+        return mod_pos(x * y, q)
+    y = mod_pos(y, q) if isinstance(y, torch.Tensor) else int(y) % q
+    hi = mod_pos(x * (y >> 16), q)
+    return mod_pos(hi * (1 << 16) + x * (y & 0xFFFF), q)
 
 
 def per_prime(pv: torch.Tensor, ndim: int) -> torch.Tensor:

@@ -4,7 +4,9 @@ Counterpart of ``labrador_tpu/ops/ntt.py``: q = 8191 is not NTT-friendly,
 so products are computed exactly over the integers in the evaluation domain
 of internal primes p = 1 (mod 2d), p < 2**15, and reconstructed mod q by
 Garner.  Each transform is a (batch, d) @ (d, d) product per prime
-(``modmath.matmul_mod``, exact in float64).
+(``modmath.matmul_mod``, exact in float64).  The same code serves the
+2^32-scale modulus: ``ntt_fwd`` reduces every residue (below 2^33) per
+prime before the float64 transform, and the plan simply has more primes.
 
 Layout (kept from the JAX package so tests compare like with like):
 evaluation-domain tensors are ``(P, ..., d)``; coefficient-domain tensors
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from ..params import LabradorParams, select_crt_primes
-from .modmath import P_MAX, matmul_mod, mod_pos, per_prime
+from .modmath import P_MAX, Q_BIG_MAX, matmul_mod, mod_pos, per_prime
 from .zq import fold_res_modq, to_res
 
 
@@ -82,11 +84,17 @@ class NttPlan:
 
 @lru_cache(maxsize=None)
 def make_plan(q: int, d: int = 64, max_accum: int = 1 << 20) -> NttPlan:
-    """``labrador_tpu.ops.ntt.make_plan`` at small q."""
-    if q > P_MAX:
+    """``labrador_tpu.ops.ntt.make_plan``: q <= P_MAX or 2^32 < q < 2^33.
+    The JAX package rejects the gap between (its single-limb arithmetic
+    ends at P_MAX, its two-limb Barrett starts above 2^32); so does the
+    port, to run the same configurations."""
+    if q > Q_BIG_MAX:
+        raise NotImplementedError(f"q={q} exceeds the two-limb range (2^33)")
+    if P_MAX < q <= (1 << 32):
         raise NotImplementedError(
-            f"q={q} > {P_MAX} needs two-limb residues: the big-q slice of the "
-            "port")
+            f"q={q} unsupported: single-limb arithmetic needs q <= {P_MAX}, "
+            f"the two-limb Barrett path needs q > 2^32. Pick q <= {P_MAX} or "
+            f"2^32 < q < 2^33 (e.g. q_start=(1 << 32) - 1).")
     primes = select_crt_primes(q, d, max_accum)
     P = len(primes)
     V = np.zeros((P, d, d), np.int64)

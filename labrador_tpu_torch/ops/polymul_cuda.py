@@ -12,6 +12,11 @@ coefficient tensors (..., d) of residues in [0, q) or small signed values
 * ``negacyclic_polymul_bhat(a, bhat, plan)``: a (*) b with b given in the
   evaluation domain, bhat (P,) + shape of per-prime residues.
 
+The route is chosen by q alone: at q <= P_MAX the kernel on CUDA tensors
+and the plain version on CPU tensors; at big q the plain version's CRT
+transforms in torch ops on any device, as the JAX package's big-q ring
+products are XLA ops.
+
 Both operands broadcast to their common shape (numpy rules on the
 coefficient shape; bhat's leading axis is the prime axis), unlike the
 Pallas version, which broadcasts b to a's shape only.  A fixed operand is
@@ -38,6 +43,12 @@ KERNEL = cuda_lib.KernelInfo(
 def negacyclic_polymul(a: torch.Tensor, b: torch.Tensor,
                        plan) -> torch.Tensor:
     """Exact a (*) b mod q for coefficient tensors (..., d)."""
+    # Big q takes the CRT transforms on any device: kernel 1 is small-q
+    # only in the JAX package too (ntt_pallas.py:304, 328 assert q <=
+    # P_MAX), whose big-q ring products are XLA transforms; this is their
+    # counterpart, not a stand-in for the kernel.
+    if plan.q > P_MAX:
+        return negacyclic_polymul_plain(a, b, plan)
     if a.is_cuda or b.is_cuda:
         return _launch_coef(a, b, plan)
     if a.device.type == b.device.type == "cpu":
@@ -47,6 +58,9 @@ def negacyclic_polymul(a: torch.Tensor, b: torch.Tensor,
 
 def negacyclic_polymul_plain(a: torch.Tensor, b: torch.Tensor,
                              plan) -> torch.Tensor:
+    """a (*) b mod q by the CRT transforms in torch ops (``ops.ntt``), on
+    any device: the plain version of the coefficient kernel, and the big-q
+    route."""
     return ntt_ops.ntt_inv_modq(ntt_ops.eval_mul(
         ntt_ops.ntt_fwd(a, plan), ntt_ops.ntt_fwd(b, plan), plan), plan)
 
@@ -54,7 +68,10 @@ def negacyclic_polymul_plain(a: torch.Tensor, b: torch.Tensor,
 def negacyclic_polymul_bhat(a: torch.Tensor, bhat: torch.Tensor,
                             plan) -> torch.Tensor:
     """a (*) b mod q for a (..., d) coefficients and b's transform bhat
-    (P,) + (..., d); the result has the broadcast shape."""
+    (P,) + (..., d); the result has the broadcast shape.  Routed by q as
+    ``negacyclic_polymul``."""
+    if plan.q > P_MAX:
+        return negacyclic_polymul_bhat_plain(a, bhat, plan)
     if a.is_cuda or bhat.is_cuda:
         return _launch_bhat(a, bhat, plan)
     if a.device.type == bhat.device.type == "cpu":
@@ -65,6 +82,7 @@ def negacyclic_polymul_bhat(a: torch.Tensor, bhat: torch.Tensor,
 
 def negacyclic_polymul_bhat_plain(a: torch.Tensor, bhat: torch.Tensor,
                                   plan) -> torch.Tensor:
+    """``negacyclic_polymul_plain`` against a transformed operand."""
     return ntt_ops.ntt_inv_modq(ntt_ops.eval_mul(
         ntt_ops.ntt_fwd(a, plan), bhat, plan), plan)
 
@@ -75,8 +93,8 @@ def negacyclic_polymul_bhat_plain(a: torch.Tensor, bhat: torch.Tensor,
 
 def _check_plan(plan) -> None:
     if plan.q > P_MAX:
-        raise NotImplementedError(
-            "the polymul kernel takes q <= P_MAX; big q is a later slice")
+        raise ValueError("the polymul kernel takes q <= P_MAX; big-q ring "
+                         "products take the CRT route")
     if plan.d != 64:
         raise ValueError("the polymul kernel is built for d = 64")
 

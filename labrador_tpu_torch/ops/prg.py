@@ -10,8 +10,6 @@ from __future__ import annotations
 
 import torch
 
-from .modmath import P_MAX
-
 M32 = 0xFFFFFFFF
 _ROT_A = (13, 15, 26, 6)
 _ROT_B = (17, 29, 16, 24)
@@ -43,17 +41,18 @@ def threefry2x32(k0, k1, c0: torch.Tensor, c1: torch.Tensor):
 
 
 def words_mod_q(x0: torch.Tensor, x1: torch.Tensor, q: int) -> torch.Tensor:
-    """(x0 * 2**32 + x1) mod q for uint32 words (held in int64)."""
-    return torch.remainder(torch.remainder(x0, q) * ((1 << 32) % q)
-                           + torch.remainder(x1, q), q)
+    """(x0 * 2**32 + x1) mod q for uint32 words (held in int64), exact for
+    any q < 2^33: x0 is split at bit 16, so each term stays below 2^49.
+    At big q this is what the JAX package's emulated-u64 Barrett reduction
+    (``ops/bigq._u64_mod_q``) computes: the 64-bit word mod q."""
+    return torch.remainder((x0 >> 16) * ((1 << 48) % q)
+                           + (x0 & 0xFFFF) * ((1 << 32) % q) + x1, q)
 
 
 def uniform_mod_q(k0: int, k1: int, offsets: torch.Tensor, q: int):
     """Draw in [0, q) at 64-bit counters ``offsets`` (int64, nonnegative):
-    the 64-bit Threefry output reduced mod q, as ``prg.uniform_mod_q``."""
-    if q > P_MAX:
-        raise NotImplementedError(
-            "big q (two-limb residues) belongs to the big-q slice of the port")
+    the 64-bit Threefry output reduced mod q, as ``prg.uniform_mod_q``, at
+    small and at big q (one int64 residue, not the JAX two-limb pair)."""
     x0, x1 = threefry2x32(k0, k1, offsets >> 32, offsets & M32)
     return words_mod_q(x0, x1, q)
 

@@ -10,10 +10,11 @@ import torch
 from .modmath import mod_pos
 
 
-def sigma_inv(a: torch.Tensor, q: int) -> torch.Tensor:
+def sigma_inv(a: torch.Tensor, q: int | None) -> torch.Tensor:
     """Conjugation automorphism X^n -> -X^(d-n), constant term fixed
-    (reference ``util.rs:118-137``)."""
+    (reference ``util.rs:118-137``); ``q=None`` keeps signed values signed
+    (the big-q ternary JL rows)."""
     rolled = torch.roll(torch.flip(a, dims=(-1,)), 1, dims=-1)  # a[d-j]
-    out = mod_pos(-rolled, q)
+    out = -rolled if q is None else mod_pos(-rolled, q)
     out[..., 0] = a[..., 0]
     return out

@@ -1,8 +1,9 @@
 """The u1 B-term sum_{m, col} B_m[row, col] (*) t_m[col]: the CUDA kernel
 (``csrc/u1.cu``) and its plain PyTorch version.
 
-Replaces ``labrador_tpu/ops/u1_pallas.py`` (``u1_bterm_pallas``).  The
-r * t_1 virtual B matrices (kappa_1, kappa, d) sit at
+Replaces ``labrador_tpu/ops/u1_pallas.py`` (``u1_bterm_pallas``), both
+its branches: small q, and the 2^32-scale modulus (signed digits, launches
+counted in ``KERNEL_BIG``).  The r * t_1 virtual B matrices (kappa_1, kappa, d) sit at
 off_b + m * kappa_1 * kappa (no factor d: the reference's stride quirk,
 ``structs.rs:82``) with row stride kappa * d; m = i * t_1 + k walks the
 t digits in the order of the JAX package's stream.
@@ -13,12 +14,18 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .ring_stream import check_small_q, launch_shape, ring_stream_plain
+from .ring_stream import (check_big_operand, check_q, launch_shape,
+                          ring_stream_plain)
+from .zq import is_big
 
 KERNEL = cuda_lib.KernelInfo(
     name="u1_bterm",
     source="labrador_tpu_torch/csrc/u1.cu",
     replaces="labrador_tpu/ops/u1_pallas.py:164")
+KERNEL_BIG = cuda_lib.KernelInfo(
+    name="u1_bterm_bigq",
+    source="labrador_tpu_torch/csrc/u1.cu",
+    replaces="labrador_tpu/ops/u1_pallas.py:104")
 
 
 def _stream(t_dig: torch.Tensor, p) -> torch.Tensor:
@@ -29,7 +36,8 @@ def _stream(t_dig: torch.Tensor, p) -> torch.Tensor:
 
 
 def u1_bterm(crs, t_dig: torch.Tensor) -> torch.Tensor:
-    """(kappa_1, d) mod q for t_dig (t_1, r, kappa, d) residues mod q."""
+    """(kappa_1, d) mod q for t_dig (t_1, r, kappa, d) digits: residues
+    mod q, or signed (the big-q convention)."""
     if t_dig.is_cuda:
         return _launch(crs, t_dig)
     if t_dig.device.type == "cpu":
@@ -57,8 +65,9 @@ def u1_bterm_plain(crs, t_dig: torch.Tensor) -> torch.Tensor:
 
 def _launch(crs, t_dig: torch.Tensor) -> torch.Tensor:
     p = crs.params
-    check_small_q(p.q, p.d)
+    check_q(p.q, p.d)
     cuda_lib.require_cuda_operand(t_dig, "t_dig", (p.t_1, p.r, p.kappa, p.d))
+    check_big_operand(t_dig, p.q, "t_dig")
     m_total = p.r * p.t_1
     L = m_total * p.kappa
     if L >= 1 << 31 or p.kappa_1 * p.d >= 1 << 31:
@@ -75,5 +84,5 @@ def _launch(crs, t_dig: torch.Tensor) -> torch.Tensor:
         p.kappa_1, p.q, crs._off_b, crs.key[0], crs.key[1], splits,
         cuda_lib.stream_ptr(t_dig.device))
     cuda_lib.check(err)
-    KERNEL.launches += 1
+    (KERNEL_BIG if is_big(p.q) else KERNEL).launches += 1
     return out

@@ -1,10 +1,15 @@
-"""Shared prover/verifier protocol math (small q, single device).
+"""Shared prover/verifier protocol math (single device, small and big q).
 
 Counterpart of ``labrador_tpu/protocol.py`` along its ``ctx=None`` branches.
 The three CRS-consuming commitments go through the kernel wrappers
 (``ops/ajtai_cuda``, ``ops/u1_cuda``, ``ops/cd_cuda``), as the JAX package
 sends them through its Pallas kernels on the TPU; everything else is
-eval-domain tensor algebra.
+eval-domain tensor algebra.  At big q the JAX package accumulates the
+scalar aggregations per CRT prime and folds once, to avoid 66-bit
+products in int32 lanes; here residues are int64 and ``modmath.mulmod``
+takes each product of two residues exactly, so both moduli share one code
+path.  Only the conventions differ: at big q the digits are signed, and
+sigma^-1 of the ternary JL rows stays signed.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ from .ops import rq, zq
 from .ops.ajtai_cuda import ajtai_commit as _ajtai_kernel
 from .ops.cd_cuda import cd_sum
 from .ops.decompose import decompose
-from .ops.modmath import matmul_mod, mod_pos
+from .ops.modmath import matmul_mod, mod_pos, mulmod
 from .ops.u1_cuda import u1_bterm
 from .params import LabradorParams, _ceil_log
 
@@ -28,14 +33,17 @@ from .params import LabradorParams, _ceil_log
 def aggregate_a_pp(a_prime: torch.Tensor, psi: torch.Tensor,
                    q: int) -> torch.Tensor:
     """a''_k = sum_l psi_k[l] a'_l: (L, r, r, d), (ub, L) -> (ub, r, r, d)."""
-    terms = mod_pos(psi[:, :, None, None, None] * a_prime[None], q)
+    terms = mulmod(a_prime[None], psi[:, :, None, None, None], q)
     return mod_pos(torch.sum(terms, dim=1), q)
 
 
 def sigma_inv_pi(pi: torch.Tensor, params: LabradorParams) -> torch.Tensor:
     """sigma^-1 on every JL row viewed as n ring elements:
-    (r, 256, n*d) int8 -> (r, 256, n*d) mod q."""
+    (r, 256, n*d) int8 -> (r, 256, n*d) mod q, or signed ternary at big q."""
     p = params
+    if zq.is_big(p.q):
+        polys = pi.to(torch.int64).reshape(p.r, 256, p.n, p.d)
+        return rq.sigma_inv(polys, None).reshape(p.r, 256, p.n * p.d)
     polys = mod_pos(pi.to(torch.int64), p.q).reshape(p.r, 256, p.n, p.d)
     return rq.sigma_inv(polys, p.q).reshape(p.r, 256, p.n * p.d)
 
@@ -48,10 +56,12 @@ def aggregate_phi_pp(phi_prime: torch.Tensor, psi: torch.Tensor,
     p = params
     ub = omega.shape[0]
     lhs = mod_pos(torch.sum(
-        mod_pos(psi[:, :, None, None, None] * phi_prime[None], p.q), dim=1),
+        mulmod(phi_prime[None], psi[:, :, None, None, None], p.q), dim=1),
         p.q)
-    # omega (ub, 256) @ pi_sigma_i (256, n*d) for every i
-    rhs = matmul_mod(omega[None], pi_sigma, p.q, p.q - 1, p.q - 1)
+    # omega (ub, 256) @ pi_sigma_i (256, n*d) for every i; at big q
+    # pi_sigma is signed ternary, which keeps the float64 contraction exact
+    pi_max = 1 if zq.is_big(p.q) else p.q - 1
+    rhs = matmul_mod(omega[None], pi_sigma, p.q, p.q - 1, pi_max)
     rhs = torch.movedim(rhs, 0, 1).reshape(ub, p.r, p.n, p.d)
     return mod_pos(lhs + rhs, p.q)
 
@@ -70,8 +80,8 @@ def b_pp_from_witness(a_pp_hat, phi_pp_hat, s_hat, g_hat, plan):
 def b_pp_expected_const(omega, psi, projection, b_prime, q: int):
     """<omega_k, p> + sum_l psi_k[l] b'_l: the b'' constant-term check
     (verification.rs:515-551) -> (ub,)."""
-    prod = mod_pos(torch.sum(mod_pos(omega * projection[None], q), dim=1), q)
-    s = mod_pos(torch.sum(mod_pos(psi * b_prime[None], q), dim=1), q)
+    prod = mod_pos(torch.sum(mulmod(omega, projection[None], q), dim=1), q)
+    s = mod_pos(torch.sum(mulmod(psi, b_prime[None], q), dim=1), q)
     return mod_pos(prod + s, q)
 
 
@@ -184,9 +194,11 @@ def u2_from_digits(crs, h_dig: torch.Tensor,
 def _decompose_protocol(x: torch.Tensor, base: int, ndig: int, q: int,
                         mode: str) -> torch.Tensor:
     """Digits stored as residues mod q; 'exact' decomposes the centred
-    representative."""
+    representative.  At big q always the exact balanced digits, kept signed
+    (``zq.decompose_balanced_big``): the reference mode has nothing to be
+    bit-compatible with there, as in the JAX package."""
     if zq.is_big(q):
-        raise NotImplementedError("big-q digits belong to the big-q slice")
+        return zq.decompose_balanced_big(x, base, ndig, q)
     if mode == "exact":
         x = zq.to_signed_small(x, q)
     return mod_pos(decompose(x, base, ndig, mode), q)

@@ -1,4 +1,4 @@
-"""The LaBRADOR prover, interactive mode at small q.
+"""The LaBRADOR prover, interactive mode, at small and big q.
 
 Counterpart of ``labrador_tpu/prover.py`` (``prove_phase1/2a/2b/3``,
 ``prove_impl``, ``prove``).  PyTorch runs eagerly, so the phases are plain
@@ -18,7 +18,8 @@ from . import protocol, sampling
 from .keys import Key, fold_in, split
 from .ops import ntt as ntt_ops
 from .ops import zq
-from .ops.modmath import matmul_exact, mod_pos, sum_sq_u64, to_signed_i32
+from .ops.modmath import (matmul_exact, mod_pos, mulmod, sum_sq_u64,
+                          to_signed_i32)
 from .oracle import DOM_BPP, DOM_JL, DOM_U1, DOM_U2, InteractiveOracle
 from .params import LabradorParams
 from .structs import State, Transcript, gram_hat
@@ -45,11 +46,6 @@ def resolve_backend(device) -> str:
     raise ValueError(f"no kernels for device type {kind!r}")
 
 
-def _check_slice(params: LabradorParams) -> None:
-    if zq.is_big(params.q):
-        raise NotImplementedError("big q belongs to the big-q slice")
-
-
 def jl_project(key: Key, witness_flat: torch.Tensor, params: LabradorParams):
     """One JL attempt: ternary Pi per witness vector and the exact integer
     projection of the centred witness.  Returns (pi (r, 256, n*d) int8,
@@ -58,6 +54,8 @@ def jl_project(key: Key, witness_flat: torch.Tensor, params: LabradorParams):
     dev = witness_flat.device
     pi = torch.stack([sampling.sample_jl_matrix(k, p, dev)
                       for k in split(key, p.r)])
+    # centred residues, and the signed int32 witness at big q, both lie
+    # within q/2 in magnitude
     w_c = zq.to_signed_small(witness_flat, p.q)
     pi_flat = torch.movedim(pi, 1, 0).reshape(256, -1).to(torch.int64)
     proj = matmul_exact(pi_flat, w_c.reshape(-1, 1), 1, p.q // 2)[:, 0]
@@ -87,7 +85,6 @@ def prove_phase1(params: LabradorParams, witness: torch.Tensor, state: State,
                  crs, oracle, ost, decomp_mode: str = "reference"):
     """Steps 1-3: Ajtai t (kernel), Gram g, outer commitment u1 (kernels)."""
     p = params
-    _check_slice(p)
     plan = ntt_ops.plan_for(p)
     s_hat = ntt_ops.ntt_fwd(witness, plan)
     t = protocol.ajtai_commit(crs, witness)
@@ -166,7 +163,7 @@ def prove_phase2b(params: LabradorParams, witness: torch.Tensor,
     m_hat = ntt_ops.eval_matmul(phi_fin_hat_red,
                                 torch.swapaxes(s_hat, -3, -2), plan)
     m = ntt_ops.ntt_inv_modq(m_hat, plan)
-    h = mod_pos(mod_pos(m + torch.swapaxes(m, 0, 1), p.q) * p.inv2, p.q)
+    h = mulmod(mod_pos(m + torch.swapaxes(m, 0, 1), p.q), p.inv2, p.q)
 
     # -- step 8: outer commitment u2 (proofgen.rs:364-378)
     h_dig = protocol.decompose_h(h, p, decomp_mode)

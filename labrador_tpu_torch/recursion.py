@@ -1,8 +1,11 @@
 """Recursive proof composition: fold a proof into a new LaBRADOR instance.
 
-Counterpart of ``labrador_tpu/recursion.py`` at small q (its ``ctx=None``
-branches; at big q the NTT plan and the digit decomposition raise
-``NotImplementedError`` naming the big-q slice).
+Counterpart of ``labrador_tpu/recursion.py`` (its ``ctx=None`` branches)
+at small and big q.  At big q the JAX package's ``Zq2`` branches (the
+residue-fold ``_scale_modq``, the lift of the signed challenges before the
+subtraction) are one int64 code path here: products of two residues go
+through ``modmath.mulmod``, and the digit witness, like the challenges,
+stays signed, as in the JAX package.
 The verifier's algebraic checks become a new principal relation whose
 witness is the exact centred digit decomposition of the amortized opening
 (z, t, g, h), so the base proof must use ``exact_digits=True`` params and
@@ -17,8 +20,9 @@ JAX module, whose docstring derives them:
 ``fold`` returns the structured relation (``FoldedState``), whose
 alpha-contractions stream the base CRS; ``recursive_step`` builds the dense
 relation (tests only, it grows with kappa x M).  Ring products of
-coefficient tensors go through ``ops.polymul_cuda.negacyclic_polymul``,
-i.e. the fused polymul kernel on the card.
+coefficient tensors go through ``ops.polymul_cuda.negacyclic_polymul``:
+the fused polymul kernel on the card at small q, the CRT transforms in
+torch ops at big q (the JAX package's XLA route there).
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from .crs import CRS
 from .ops import ntt as ntt_ops
 from .ops import polymul_cuda
 from .ops import zq
-from .ops.modmath import mod_pos
+from .ops.modmath import mod_pos, mulmod
 from .params import LabradorParams, _ceil_log
 from .structs import State, Transcript, gram_hat
 
@@ -45,8 +49,8 @@ _STEP_COEFFS = 1 << 22
 
 def _exact_digits_lifted(x: torch.Tensor, base: int, ndig: int,
                          q: int) -> torch.Tensor:
-    """Exact centred digits lifted to residues mod q: the digits the prover
-    committed to in u1/u2 (``decomp_mode='exact'``)."""
+    """Exact centred digits lifted to residues mod q (signed at big q): the
+    digits the prover committed to in u1/u2 (``decomp_mode='exact'``)."""
     return protocol._decompose_protocol(x, base, ndig, q, "exact")
 
 
@@ -137,23 +141,24 @@ def build_witness(layout: RecursionLayout, proof: Transcript) -> torch.Tensor:
     return flat.reshape(layout.r_new, layout.n_new, d)
 
 
-# a (*) b mod q, broadcasting: the fused polymul kernel on the card
+# a (*) b mod q, broadcasting: the fused polymul kernel on the card at
+# small q, the CRT route at big q (ops/polymul_cuda.py)
 _ring_mul_modq = polymul_cuda.negacyclic_polymul
 
 
 def _scale_modq(x: torch.Tensor, const: int, q: int) -> torch.Tensor:
-    """x * const mod q for canonical x; the product < q^2 is exact."""
-    return mod_pos(x * (int(const) % q), q)
+    """x * const mod q for canonical (or small signed) x."""
+    return mulmod(x, int(const) % q, q)
 
 
 def _scale_many_modq(x: torch.Tensor, w: np.ndarray, q: int) -> torch.Tensor:
     """x (..., d) canonical times a static integer weight table w (numpy,
     any integer or Python-object entries, broadcastable against
     x.shape[:-1]) -> canonical mod q.  The weights are reduced mod q in
-    Python integers, so every product is below q^2 < 2^30: exact in int64."""
+    Python integers first."""
     w = np.vectorize(lambda v: int(v) % q, otypes=[np.int64])(np.asarray(w))
     wt = torch.as_tensor(w, dtype=torch.int64).to(x.device)[..., None]
-    return mod_pos(x * wt, q)
+    return mulmod(x, wt, q)
 
 
 def _res_scale(res: torch.Tensor, const: int, plan) -> torch.Tensor:

@@ -28,9 +28,8 @@ _MAX_CHALLENGE_DRAWS = 1000
 
 def uniform_zq(key: Key, shape, q: int, device="cuda") -> torch.Tensor:
     """Uniform [0, q) from 64 random bits per entry (bias < q / 2**64):
-    ``jax.random.bits(key, shape + (2,))`` reduced as (b0 * 2**32 + b1) mod q."""
-    if zq.is_big(q):
-        raise NotImplementedError("big-q sampling belongs to the big-q slice")
+    ``jax.random.bits(key, shape + (2,))`` reduced as (b0 * 2**32 + b1) mod q,
+    at small and at big q."""
     b = keys.bits(key, tuple(shape) + (2,), device)
     return prg.words_mod_q(b[..., 0], b[..., 1], q)
 
@@ -39,9 +38,13 @@ def generate_witness(key: Key, params: LabradorParams,
                      device="cuda") -> torch.Tensor:
     """(r, n, d) witness with raw-residue squared norm <= beta^2: a uniform
     draw, halved as a whole until the bound holds (``sampling.py`` of the
-    JAX package)."""
+    JAX package).  At big q the draw is first shifted right by
+    q.bit_length() - 30 bits into the int32 range, as the JAX package does
+    (beta << 2^30, so the shift is a prefix of the halvings)."""
     p = params
     w = uniform_zq(key, (p.r, p.n, p.d), p.q, device)
+    if zq.is_big(p.q):
+        w = w >> max(0, p.q.bit_length() - 30)
     bound = p.beta_bound * p.beta_bound
     count = p.r * p.n * p.d
     elem_cap = min(math.isqrt((1 << 63) // count), 2**30)
@@ -100,12 +103,15 @@ def sample_challenge(key: Key, params: LabradorParams,
                      device="cuda") -> torch.Tensor:
     """One challenge polynomial: a signed permutation of the fixed multiset,
     redrawn (key folded with 1) while its operator norm exceeds T = 15.
-    Drawn on the host (64 values) and returned as residues mod q."""
+    Drawn on the host (64 values) and returned as residues mod q at small
+    q; at big q kept signed, the JAX package's convention there."""
     p = params
     k = keys.fold_in(key, 0)
     centered = _draw_challenge(k, p.d)
     for _ in range(_MAX_CHALLENGE_DRAWS):
         if operator_norm_sq(centered, p.d) <= T_OPNORM * T_OPNORM:
+            if zq.is_big(p.q):
+                return centered.to(device)
             return mod_pos(centered, p.q).to(device)
         k = keys.fold_in(k, 1)
         centered = _draw_challenge(k, p.d)

@@ -1,8 +1,11 @@
 """Protocol objects: constraint-system State and proof Transcript.
 
 Counterpart of ``labrador_tpu/structs.py``, as dataclasses of int64
-residue tensors.  The bincode layout, ``transcript_size_in_bytes`` and
-``save_transcript`` produce the same bytes as the JAX package.
+residue tensors at small and big q (the JAX package's two-limb ``Zq2``
+fields are one int64 tensor here).  The bincode layout,
+``transcript_size_in_bytes`` and ``save_transcript`` produce the same bytes
+as the JAX package; at big q the challenges ``c`` are signed and bincode
+writes them sign-extended, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 from . import sampling
 from .keys import Key, split
 from .ops import ntt as ntt_ops
+from .ops import zq
 from .ops.modmath import mod_pos
 from .params import LabradorParams
 
@@ -201,13 +205,28 @@ def transcript_sha256(tr: Transcript, q: int, fs: bool = False) -> str:
 # dtypes the JAX package's transcript arrays carry (int32 residues, int8
 # JL matrices, bool flags), so saved files hold the same .npy members
 _SAVE_DTYPES = {"pi": np.int8, "jl_ok": np.bool_, "b_pp_ok": np.bool_}
+# fields that are not residues: at big q they stay one member (signed c)
+_NOT_RESIDUES = ("pi", "c", "jl_ok", "b_pp_ok")
 
 
-def save_transcript(tr: Transcript, path: str) -> None:
+def save_transcript(tr: Transcript, path: str, q: int) -> None:
     """Persist a transcript as ``np.savez_compressed``, one member per field
-    in declaration order with the JAX package's dtypes."""
+    in declaration order with the JAX package's dtypes.  At a big modulus
+    ``q`` each residue field is written as the JAX package writes its
+    two-limb ``Zq2`` fields: members ``<name>__hi`` (value >> 16) and
+    ``<name>__lo`` (the low 16 bits), int32.  Raises if a single-member
+    field does not fit its dtype (a big-q transcript saved with a small
+    ``q``)."""
     arrays = {}
     for f in dataclasses.fields(tr):
-        arrays[f.name] = _np(getattr(tr, f.name)).astype(
-            _SAVE_DTYPES.get(f.name, np.int32))
+        v = _np(getattr(tr, f.name))
+        if zq.is_big(q) and f.name not in _NOT_RESIDUES:
+            arrays[f.name + "__hi"] = (v >> 16).astype(np.int32)
+            arrays[f.name + "__lo"] = (v & 0xFFFF).astype(np.int32)
+            continue
+        a = v.astype(_SAVE_DTYPES.get(f.name, np.int32))
+        if not np.array_equal(a, v):
+            raise ValueError(f"field {f.name} does not fit {a.dtype} at "
+                             f"q = {q}")
+        arrays[f.name] = a
     np.savez_compressed(path, **arrays)

@@ -16,7 +16,7 @@ import torch
 from . import protocol
 from .ops import ntt as ntt_ops
 from .ops import zq
-from .ops.modmath import mod_pos, sum_sq_u64, u64_sum
+from .ops.modmath import mod_pos, sum_sq_u64, to_signed_i32, u64_sum
 from .params import LabradorParams
 from .structs import State, Transcript
 
@@ -35,7 +35,9 @@ def check14_norm_bound(p: LabradorParams, z, z_dig, t_dig, g_dig, h_dig,
         total = sum(u64_sum(x * x) for x in digs) % (1 << 64)
         ok = total <= int(p.beta_prime)
         if p.exact_digits:
-            z_c = zq.to_signed_small(z, p.q)
+            # the JAX package's to_signed_small keeps the int32 word of the
+            # centred value (a wrap only at big q, only for |z| >= 2^31)
+            z_c = to_signed_i32(zq.to_signed_small(z, p.q))
             gamma_z = 2 * int(p.gamma)
             entry_max = min(math.isqrt(gamma_z), 2**31 - 1)
             ok = ok and bool(torch.all(torch.abs(z_c) <= entry_max)) \
@@ -56,8 +58,6 @@ def verify_report(params: LabradorParams, state: State, proof: Transcript,
     """All checks as {name: bool}, plus 'all' (checks 8-20) and
     'all_with_bpp' (also the b'' constant term)."""
     p = params
-    if zq.is_big(p.q):
-        raise NotImplementedError("big q belongs to the big-q slice")
     plan = ntt_ops.plan_for(p)
     checks: dict[str, bool] = {}
 
@@ -81,8 +81,11 @@ def verify_report(params: LabradorParams, state: State, proof: Transcript,
         p, proof.z, z_dig, t_dig, g_dig, h_dig, norm_mode)
 
     # ---- check 15: A z == sum_i c_i t_i (verification.rs:274-296)
+    # z enters the kernel centred and wrapped to int32, the JAX package's
+    # to_signed_small at big q (the identity on every valid z)
     z_hat = ntt_ops.ntt_fwd(proof.z, plan)
-    lhs = protocol.ajtai_commit(crs, mod_pos(proof.z, p.q)[None])[0]
+    z_c = to_signed_i32(zq.to_signed_small(mod_pos(proof.z, p.q), p.q))
+    lhs = protocol.ajtai_commit(crs, z_c[None])[0]
     c_hat = ntt_ops.ntt_fwd(proof.c, plan)
     t_hat = ntt_ops.ntt_fwd(proof.t, plan)
     rhs = ntt_ops.ntt_inv_modq(ntt_ops._mod_sum_p(

@@ -169,7 +169,7 @@ def test_save_transcript_members_equal(jax_run, torch_run, tmp_path):
     """Same .npy members (names, dtypes, bytes); only the zip entries'
     timestamps may differ."""
     jstructs.save_transcript(jax_run["proof"], str(tmp_path / "j.npz"))
-    tstructs.save_transcript(torch_run["proof"], str(tmp_path / "t.npz"))
+    tstructs.save_transcript(torch_run["proof"], str(tmp_path / "t.npz"), P.q)
     import zipfile
     with zipfile.ZipFile(tmp_path / "j.npz") as zj, \
             zipfile.ZipFile(tmp_path / "t.npz") as zt:
@@ -266,7 +266,8 @@ def test_check14_digits_and_norm_equal(jax_run, decomp_mode, norm_mode,
         assert got
 
 
-@pytest.mark.parametrize("flag", [["--fs"], ["--big-q"], ["-R", "--big-q"],
+@pytest.mark.parametrize("flag", [["--fs"], ["--big-q", "--fs"],
+                                  ["-R", "--big-q", "--phases"],
                                   ["--phases"], ["--ckpt", "x"]])
 def test_cli_unported_flags_exit(flag):
     with pytest.raises(SystemExit) as e:

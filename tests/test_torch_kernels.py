@@ -7,7 +7,8 @@ versions (negacyclic_polymul_plain, negacyclic_polymul_bhat_plain) against
 the fused Pallas polymul and the XLA transforms: past one Pallas block
 (padding), with two-sided broadcasting, and with a fixed, a per-row and a
 random-residue evaluation-domain operand.  On a CUDA machine, also each
-CUDA kernel against its plain version.
+CUDA kernel against its plain version, kernels 2-4 in both their modes (the
+big-q plain versions are held against JAX in tests/test_torch_bigq.py).
 
 JAX is imported only by the ``jx`` fixture, so on a card machine without
 JAX ``python -m pytest tests/test_torch_kernels.py -m cuda --noconftest``
@@ -265,3 +266,46 @@ def test_cuda_kernels_match_plain(case):
     torch.cuda.synchronize()
     for got, want in pairs:
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_start", [(1 << 32) - 1, (1 << 33) - 9],
+                         ids=["q4294967311", "q8589934583"])
+def test_cuda_bigq_kernels_match_plain(q_start):
+    """Kernels 2-4 in their big-q mode against their plain versions, on
+    signed operands at their bounds (the JAX package's big-q convention; a
+    witness up to q/2, the most the kernel takes) and on residues, at the
+    2^32-scale modulus and at the largest prime below 2^33."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from labrador_tpu_torch.params import LabradorParams as TParams
+    p = TParams(n=2, r=6, kappa_override=16, q_start=q_start,
+                exact_digits=True)
+    crs = TCRS.create(p, SEED)
+    rng = np.random.default_rng(11)
+
+    def signed(top, shape):
+        x = rng.integers(-top, top + 1, shape)
+        x.reshape(-1)[:2] = [top, -top]
+        return _t(x).to("cuda")
+
+    w = signed(p.q // 2, (p.r, p.n, p.d))
+    w[0, 0, 2] = -(2**31)
+    t_dig = signed(p.b_1 // 2, (p.t_1, p.r, p.kappa, p.d))
+    g_str = _tri_stream(signed(p.b_2 // 2, (p.t_2, p.r, p.r, p.d)), p)
+    h_str = _tri_stream(signed(p.b_1 // 2, (p.t_1, p.r, p.r, p.d)), p)
+    pairs = [
+        (ajtai_cuda.ajtai_commit(crs, w), ajtai_cuda.ajtai_commit_plain(crs, w)),
+        (ajtai_cuda.ajtai_commit(crs, w % p.q),
+         ajtai_cuda.ajtai_commit_plain(crs, w)),
+        (u1_cuda.u1_bterm(crs, t_dig), u1_cuda.u1_bterm_plain(crs, t_dig)),
+        (cd_cuda.cd_sum(crs, g_str, crs._off_c, p.t_2),
+         cd_cuda.cd_sum_plain(crs, g_str, crs._off_c, p.t_2)),
+        (cd_cuda.cd_sum(crs, h_str, crs._off_d, p.t_1),
+         cd_cuda.cd_sum_plain(crs, h_str, crs._off_d, p.t_1)),
+    ]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert torch.equal(got, want)
+    assert ajtai_cuda.KERNEL_BIG.launches and u1_cuda.KERNEL_BIG.launches \
+        and cd_cuda.KERNEL_BIG.launches
