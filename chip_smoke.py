@@ -109,7 +109,8 @@ class Work:
     def cuda_core_ms(self) -> float:
         """The same bound with the multiply-adds on the CUDA cores
         (mac_ops int32 operations each: one IMAD for a product below 2^31,
-        more for a wider one), the design the kernels use today."""
+        more for a wider one), the design of the Ajtai and C/D kernels;
+        the u1 kernel takes them on int8 tensor cores."""
         return max(self.nbytes / HBM_BYTES_PER_S,
                    (self.int32_ops + self.macs * self.mac_ops)
                    / INT32_OPS_PER_S) * 1e3
@@ -276,7 +277,8 @@ def hold_kernels(p, label_size: str, stats: dict | None = None,
         plain_ms = cuda_ms(plain, plain_reps)
         log(f"kernel {label:16s} {label_size:13s} {str(tuple(got.shape)):15s}"
             f" bit-equal (tolerance 0)  kernel {ms:.4f} ms  plain "
-            f"{plain_ms:.4f} ms  {work.describe()}")
+            f"{plain_ms:.4f} ms  {work.describe()}; at "
+            f"{work.bound()[0] / ms:.1%} of the bound")
         if stats is None:
             continue
         st = stats.setdefault(_kernel_info(mod, p.q).name, {"max_abs_err": 0})

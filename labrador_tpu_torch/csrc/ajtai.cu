@@ -12,7 +12,7 @@
 // The witness is the right-hand side of the shared ring-stream kernel
 // (threefry.cuh): each block generates its A row chunk once and applies it
 // to four witness vectors.
-// Bounds on the H100: integer issue (Threefry + 64-bit modulo per A entry
+// Bounds on the H100: integer issue (Threefry + Barrett reduction per A entry
 // per rhs group, int32 multiply + int64 add per product at small q, int64
 // multiply + 128-bit add at big q); no global traffic beyond the witness
 // and t.
@@ -38,11 +38,12 @@ struct AjtaiOffset {
 
 extern "C" int ajtai_commit_launch(const int64_t* s, int64_t* part,
                                    int64_t* out, int r_eff, int n, int kappa,
-                                   int64_t q, uint32_t k0, uint32_t k1,
-                                   int splits, void* stream) {
+                                   int64_t q, uint64_t barrett_m,
+                                   uint32_t k0, uint32_t k1, int splits,
+                                   void* stream) {
   const AjtaiOffset off{static_cast<uint64_t>(n) * D};
   return static_cast<int>(launch_ring_stream(
-      s, part, out, r_eff, n, kappa, q, k0, k1, off, splits,
+      s, part, out, r_eff, n, kappa, q, barrett_m, k0, k1, off, splits,
       static_cast<cudaStream_t>(stream)));
 }
 

@@ -11,7 +11,7 @@
 // (structs.rs:106), so oc is not affine in lin when t_used < t_1.
 // base is the C or the D region start.  Shared ring-stream kernel:
 // threefry.cuh.  The stream is not padded: ragged chunks stop at L.
-// Bounds on the H100: integer issue (one Threefry + 64-bit modulo per
+// Bounds on the H100: integer issue (one Threefry + Barrett reduction per
 // entry of the kappa_2 x L x d column block, 64 products per entry).
 // Shape limits (checked by ops/cd_cuda.py): d = 64, q <= 32513 or
 // 2^32 < q < 2^33 (signed digits),
@@ -36,10 +36,11 @@ struct CdOffset {
 
 extern "C" int cd_sum_launch(const int64_t* dig, int64_t* part, int64_t* out,
                              int L, int t_used, int t1, int kappa2, int64_t q,
-                             uint64_t base, uint32_t k0, uint32_t k1,
+                             uint64_t barrett_m, uint64_t base, uint32_t k0,
+                             uint32_t k1,
                              int splits, void* stream) {
   const CdOffset off{base, t_used, t1, kappa2};
   return static_cast<int>(launch_ring_stream(
-      dig, part, out, 1, L, kappa2, q, k0, k1, off, splits,
+      dig, part, out, 1, L, kappa2, q, barrett_m, k0, k1, off, splits,
       static_cast<cudaStream_t>(stream)));
 }

@@ -1,4 +1,7 @@
-// Shared device code of the commitment kernels (ajtai.cu, u1.cu, cd.cu).
+// Shared device code of the commitment kernels: the ring-stream kernel of
+// ajtai.cu and cd.cu, and the Threefry block, the Barrett reduction of its
+// word, mod_i128 and the split reduction that u1.cu's tensor-core kernel
+// uses as well.
 //
 // All three commitments of the interactive path have one shape:
 //
@@ -27,8 +30,9 @@
 //     thread, so the accumulator stays below 2^73 and its reduction
 //     (mod_i128) below 2^43.
 //
-// Design (simple and right first; tensor-core limb products, TMA and
-// tiling for speed are later work):
+// Design of the ring-stream kernel (simple and right first; u1.cu shows
+// the tensor-core limb products that Ajtai and C/D can adopt through their
+// offset functors):
 //   * grid (rows, splits, rhs groups), 256 threads = 4 groups x 64 output
 //     coefficients; a block walks its share of l in chunks of LC ring
 //     elements;
@@ -43,7 +47,7 @@
 //   * each block writes its partial mod q; a second kernel sums the splits
 //     mod q (blocks run in no order, so nothing carries between them).
 // What bounds it on the H100: integer issue rate — one Threefry block and a
-// 64-bit modulo per CRS entry, and an int32 multiply + int64 add per
+// Barrett reduction per CRS entry, and an int32 multiply + int64 add per
 // product at small q (a 64-bit or 128-bit product + 128-bit add at big
 // q); global
 // traffic is only the digits and the output.
@@ -94,14 +98,30 @@ constexpr int64_t BIG_NARROW_Q_END = (int64_t{1} << 32) + (int64_t{1} << 30);
 // The kernel's modes, chosen by q at launch (bounds at the top).
 enum RingMode { SMALL, BIG, BIG_WIDE };
 
+// x mod q for any 64-bit word x, by Barrett reduction with the constant
+// m = floor((2^64 - 1) / q) (ring_stream.barrett_m, computed on the host):
+// with rho = (2^64 - 1) mod q < q, x m / 2^64 = x / q - x (1 + rho) /
+// (q 2^64), and x < 2^64, 1 + rho <= q make the second term < 1, so
+// t = floor(x m / 2^64) is floor(x / q) or one less.  r = x - t q is then
+// in [0, 2q) (exact in wrapping 64-bit arithmetic, as 2q < 2^34), and one
+// conditional subtraction gives the residue.  It replaces a generic
+// 64-bit `%` with a runtime q, which the card runs as a software division.
+__device__ __forceinline__ uint64_t barrett_mod(uint64_t x, uint64_t q,
+                                                uint64_t m) {
+  const uint64_t r = x - __umul64hi(x, m) * q;
+  return r >= q ? r - q : r;
+}
+
 // CRS entry at a 64-bit offset: the Threefry output (x0 * 2^32 + x1) mod q
 // in [0, q), which is what prg.uniform_mod_q computes at any q.
 __device__ __forceinline__ int64_t crs_coeff(uint32_t k0, uint32_t k1,
-                                             uint64_t off, uint64_t q) {
+                                             uint64_t off, uint64_t q,
+                                             uint64_t barrett_m) {
   uint32_t x0, x1;
   threefry2x32(k0, k1, static_cast<uint32_t>(off >> 32),
                static_cast<uint32_t>(off), x0, x1);
-  return static_cast<int64_t>(((static_cast<uint64_t>(x0) << 32) | x1) % q);
+  return static_cast<int64_t>(barrett_mod(
+      (static_cast<uint64_t>(x0) << 32) | x1, q, barrett_m));
 }
 
 // Operand and accumulator types of the modes (bounds at the top).
@@ -151,8 +171,8 @@ __device__ __forceinline__ int64_t acc_mod(__int128 v, int64_t q,
 template <class Off, int MODE>
 __global__ void __launch_bounds__(THREADS)
 ring_stream_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
-                   int nrhs, int L, int rows, int64_t q, uint32_t k0,
-                   uint32_t k1, Off off, int l_per_split) {
+                   int nrhs, int L, int rows, int64_t q, uint64_t barrett_m,
+                   uint32_t k0, uint32_t k1, Off off, int l_per_split) {
   constexpr bool BIG_Q = MODE != SMALL;
   using Entry = typename RingTypes<MODE>::Entry;
   using Acc = typename RingTypes<MODE>::Acc;
@@ -186,7 +206,7 @@ ring_stream_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
       if (l < nl) {
         const int64_t x = crs_coeff(
             k0, k1, off(l0 + l, row) + static_cast<uint64_t>(c),
-            static_cast<uint64_t>(q));
+            static_cast<uint64_t>(q), barrett_m);
         m = static_cast<Entry>(BIG_Q && x > half_q ? x - q : x);
       }
       m_sh[l][c] = m;
@@ -249,21 +269,22 @@ __global__ void reduce_splits_kernel(const int64_t* __restrict__ part,
 template <class Off>
 cudaError_t launch_ring_stream(const int64_t* dig, int64_t* part,
                                int64_t* out, int nrhs, int L, int rows,
-                               int64_t q, uint32_t k0, uint32_t k1, Off off,
-                               int splits, cudaStream_t stream) {
+                               int64_t q, uint64_t barrett_m, uint32_t k0,
+                               uint32_t k1, Off off, int splits,
+                               cudaStream_t stream) {
   const int zb = nrhs == 1 ? 1 : (nrhs + GROUPS - 1) / GROUPS;
   const int per = (L + splits - 1) / splits;
   const int l_per_split = (per + LC - 1) / LC * LC;
   const dim3 grid(rows, splits, zb);
   if (q <= SMALL_Q_MAX) {
     ring_stream_kernel<Off, SMALL><<<grid, THREADS, 0, stream>>>(
-        dig, part, nrhs, L, rows, q, k0, k1, off, l_per_split);
+        dig, part, nrhs, L, rows, q, barrett_m, k0, k1, off, l_per_split);
   } else if (q < BIG_NARROW_Q_END) {
     ring_stream_kernel<Off, BIG><<<grid, THREADS, 0, stream>>>(
-        dig, part, nrhs, L, rows, q, k0, k1, off, l_per_split);
+        dig, part, nrhs, L, rows, q, barrett_m, k0, k1, off, l_per_split);
   } else {
     ring_stream_kernel<Off, BIG_WIDE><<<grid, THREADS, 0, stream>>>(
-        dig, part, nrhs, L, rows, q, k0, k1, off, l_per_split);
+        dig, part, nrhs, L, rows, q, barrett_m, k0, k1, off, l_per_split);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;

@@ -15,8 +15,8 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .ring_stream import (check_big_operand, check_q, launch_shape,
-                          ring_stream_plain)
+from .ring_stream import (barrett_m, check_big_operand, check_q,
+                          launch_shape, ring_stream_plain)
 from .zq import is_big
 
 KERNEL = cuda_lib.KernelInfo(
@@ -68,7 +68,7 @@ def _launch(crs, witness: torch.Tensor) -> torch.Tensor:
     lib = cuda_lib.load().lib
     err = lib.ajtai_commit_launch(
         witness.data_ptr(), part.data_ptr(), out.data_ptr(), r_eff, p.n,
-        p.kappa, p.q, crs.key[0], crs.key[1], splits,
+        p.kappa, p.q, barrett_m(p.q), crs.key[0], crs.key[1], splits,
         cuda_lib.stream_ptr(witness.device))
     cuda_lib.check(err)
     (KERNEL_BIG if is_big(p.q) else KERNEL).launches += 1

@@ -14,8 +14,8 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .ring_stream import (check_big_operand, check_q, launch_shape,
-                          ring_stream_plain)
+from .ring_stream import (barrett_m, check_big_operand, check_q,
+                          launch_shape, ring_stream_plain)
 from .zq import is_big
 
 KERNEL = cuda_lib.KernelInfo(
@@ -78,7 +78,8 @@ def _launch(crs, dig_stream: torch.Tensor, base_off: int,
     lib = cuda_lib.load().lib
     err = lib.cd_sum_launch(
         dig_stream.data_ptr(), part.data_ptr(), out.data_ptr(), L, t_used,
-        p.t_1, p.kappa_2, p.q, base_off, crs.key[0], crs.key[1], splits,
+        p.t_1, p.kappa_2, p.q, barrett_m(p.q), base_off, crs.key[0],
+        crs.key[1], splits,
         cuda_lib.stream_ptr(dig_stream.device))
     cuda_lib.check(err)
     (KERNEL_BIG if is_big(p.q) else KERNEL).launches += 1

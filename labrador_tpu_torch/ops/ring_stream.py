@@ -9,12 +9,14 @@ product of an entry and a centred operand (both up to q/2 ~ 2^31) is
 beyond float64's exact range, so the contraction runs per CRT prime and
 one signed Garner fold (``zq.fold_res_modq``) gives the sum mod q, as the
 JAX package's XLA path does.  This is what ``csrc/threefry.cuh``'s
-ring-stream kernel computes; the CPU path and the tests use it, and
+ring-stream kernel and ``csrc/u1.cu``'s tensor-core kernel compute; the
+CPU path and the tests use it, and
 ``chip_smoke.py`` holds the kernels against it.  The operands may be
 residues in [0, q) or signed values of magnitude at most q/2 (the big-q
 convention of the JAX package: signed digits and witness); the kernel and
 this version centre them alike.  Also the shared launch plumbing of the
-three CUDA wrappers.
+three CUDA wrappers, and the Barrett constant of the kernels' reduction
+of a Threefry word.
 """
 
 from __future__ import annotations
@@ -103,6 +105,13 @@ def check_big_operand(x: torch.Tensor, q: int, name: str) -> None:
         if lo < -(q // 2) or hi >= q:
             raise ValueError(f"{name} has values in [{lo}, {hi}], outside "
                              f"[-q/2, q) for the big-q kernel")
+
+
+def barrett_m(q: int) -> int:
+    """floor((2^64 - 1) / q): the Barrett constant with which the kernels
+    reduce each 64-bit Threefry word mod q (``csrc/threefry.cuh``
+    ``barrett_mod``, where the bound is proved)."""
+    return ((1 << 64) - 1) // q
 
 
 def launch_shape(rows: int, nrhs: int, L: int) -> int:

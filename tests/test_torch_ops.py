@@ -362,10 +362,11 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize(
     "path", sorted((ROOT / "labrador_tpu_torch").rglob("*.py"))
-    + [ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+    + [ROOT / "chip_smoke.py", ROOT / "kernel_times.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
-    """No module of the port, and not chip_smoke.py, imports JAX or any
-    module of the JAX package."""
+    """No module of the port, and neither chip_smoke.py nor
+    kernel_times.py, imports JAX or any module of the JAX package."""
     for mod in _imports(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "flax", "labrador_tpu"), \
