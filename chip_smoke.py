@@ -5,7 +5,10 @@ package's golden transcript, proves and verifies the 2^14-coefficient
 instance (BASELINE.json config 3), runs the recursion flow (``cli -R``:
 prove, fold, prove and verify the folded instance) at config 1 against the
 JAX golden digests and at the 2^14 base, and does the same at the
-2^32-scale modulus (``cli --big-q``, with and without ``-R``).
+2^32-scale modulus (``cli --big-q``, with and without ``-R``).  Also runs
+the JL projection on a witness of 8,388,608 coefficients, above the
+4,194,303 where the port's projection used to stop, exact on the rows it
+checks against numpy.
 
 Usage (from the repository root, on a machine with one CUDA card):
     python3 chip_smoke.py
@@ -254,7 +257,7 @@ def _kernel_cases(p, seed: int):
          lambda: cd_cuda.cd_sum_plain(crs, h_str, crs._off_d, p.t_1),
          work(p.kappa_2, n_tri * p.t_1, 1, p.b_1 // 2)),
         (cd_cuda, "cd C-term (u1)",
-         lambda: cd_cuda.cd_sum(crs, g_str, crs._off_c, p.t_2),
+         lambda: cd_cuda.cd_sum(crs, g_str, crs._off_c, p.t_2, p.b_2),
          lambda: cd_cuda.cd_sum_plain(crs, g_str, crs._off_c, p.t_2),
          work(p.kappa_2, n_tri * p.t_2, 1, p.b_2 // 2)),
     ]
@@ -952,7 +955,7 @@ def _profile_folded_prove(res, label: str = "2^14 -R") -> None:
         cum[fn] = max(cum.get(fn, 0.0), row[3])
     names = ("prove_phase1", "prove_phase2a", "prove_phase2b",
              "prove_phase3", "sample_challenge", "sample_jl_matrix",
-             "jl_project", "sigma_inv_pi", "aggregate_phi_pp",
+             "jl_project", "jl_projection", "aggregate_phi_pp",
              "phi_alpha_modq", "_alpha_contract_b", "ajtai_commit",
              "u1_from_digits", "u2_from_digits", "gram_hat")
     log(f"{label} folded prove under cProfile: {wall * 1e3:.2f} ms wall; "
@@ -960,11 +963,67 @@ def _profile_folded_prove(res, label: str = "2^14 -R") -> None:
                                      for n in names))
 
 
+JL_COEFFS = 1 << 23                     # 8,388,608 witness coefficients
+JL_ROWS_CHECKED = (0, 1, 128, 255)
+
+
+def phase_jl_projection() -> None:
+    """The JL projection (``prover.jl_projection``) of a random signed
+    int32 witness of JL_COEFFS coefficients by a random ternary int8 pi
+    (r = 2, 256 rows) on the card: a few rows held exactly against numpy
+    int64 on the host (the JAX package's limbs, int32-wrapping limb dots,
+    emulated i64 recombination and low word), the time and the peak device
+    memory above pi's own bytes."""
+    from labrador_tpu_torch import prover
+
+    r, m = 2, JL_COEFFS // 2
+    gen = torch.Generator(device="cuda").manual_seed(0x1A)
+    pi = torch.randint(-1, 2, (r, 256, m), dtype=torch.int8, device="cuda",
+                       generator=gen)
+    w = torch.randint(-(1 << 31), 1 << 31, (r, m), dtype=torch.int64,
+                      device="cuda", generator=gen)
+    prover.jl_projection(pi[:, :, :1024], w[:, :1024])   # warm-up
+    _sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    proj, fits = prover.jl_projection(pi, w)
+    stop.record()
+    _sync()
+    ms = start.elapsed_time(stop)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    v = w.cpu().numpy().astype(np.int32).astype(np.int64)
+    limbs_np = []
+    for _ in range(4):
+        limb = ((v + 128) & 255) - 128
+        limbs_np.append(limb)
+        v = (v - limb) >> 8
+    for row in JL_ROWS_CHECKED:
+        pr = pi[:, row].cpu().numpy().astype(np.int64)
+        acc = 0
+        for k in (3, 2, 1, 0):
+            dot = int(np.sum(pr * limbs_np[k]))
+            dot = (dot + (1 << 31)) % (1 << 32) - (1 << 31)   # int32 wrap
+            acc = acc * 256 + dot
+        want = (acc + (1 << 31)) % (1 << 32) - (1 << 31)
+        if int(proj[row]) != want:
+            raise AssertionError(f"JL projection row {row}: {int(proj[row])}"
+                                 f" != numpy {want}")
+    log(f"JL projection: {r * m} coefficients (pi {tuple(pi.shape)} int8), "
+        f"rows {list(JL_ROWS_CHECKED)} == numpy int64; fits {fits}; "
+        f"{ms:.2f} ms; peak device memory {peak_gb:.3f} GB above the "
+        f"inputs ({pi.numel() / 1e9:.3f} GB of pi)")
+
+
 def main() -> int:
     phase_device()
     phase_build()
     stats = phase_kernels()
     stats["negacyclic_polymul"] = phase_polymul()
+    phase_jl_projection()
     phase_config1()
     phase_real()
     phase_recursion_config1()

@@ -1,7 +1,7 @@
 // Shared device code of the commitment kernels: the ring-stream kernel of
-// ajtai.cu and cd.cu, and the Threefry block, the Barrett reduction of its
-// word, mod_i128 and the split reduction that u1.cu's tensor-core kernel
-// uses as well.
+// ajtai.cu, and the Threefry block, the Barrett reduction of its word,
+// mod_i128 and the split reduction that the tensor-core stream kernel of
+// u1.cu and cd.cu (mma_stream.cuh) uses as well.
 //
 // All three commitments of the interactive path have one shape:
 //
@@ -30,9 +30,9 @@
 //     thread, so the accumulator stays below 2^73 and its reduction
 //     (mod_i128) below 2^43.
 //
-// Design of the ring-stream kernel (simple and right first; u1.cu shows
-// the tensor-core limb products that Ajtai and C/D can adopt through their
-// offset functors):
+// Design of the ring-stream kernel (simple and right first; mma_stream.cuh
+// has the tensor-core limb products that u1 and C/D take through their
+// offset functors, and Ajtai can adopt):
 //   * grid (rows, splits, rhs groups), 256 threads = 4 groups x 64 output
 //     coefficients; a block walks its share of l in chunks of LC ring
 //     elements;

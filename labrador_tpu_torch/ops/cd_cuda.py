@@ -3,10 +3,16 @@
 
 Replaces ``labrador_tpu/ops/cd_pallas.py`` (``cd_sum_pallas``), both its
 branches: small q, and the 2^32-scale modulus (signed digits, launches
-counted in ``KERNEL_BIG``).  The u1 C-term (M = C, g digits, t_used = t_2) and u2 (M = D, h digits,
-t_used = t_1).  The column vector of stream entry lin = tri * t_used + k
-sits at base + oc * kappa_2 * d with oc = tri * t_1 + k — the t_1
-multiplier also for C (``structs.rs:106``).
+counted in ``KERNEL_BIG``).  The u1 C-term (M = C, g digits of base b_2,
+t_used = t_2) and u2 (M = D, h digits of base b_1, t_used = t_1).  The
+column vector of stream entry lin = tri * t_used + k sits at base + oc *
+kappa_2 * d with oc = tri * t_1 + k — the t_1 multiplier also for C
+(``structs.rs:106``).
+
+The kernel is the u1 B-term's int8 tensor-core stream kernel
+(``csrc/mma_stream.cuh``) with the C/D offset: ``digit_limbs`` of the
+digit base, as the Pallas kernel counts them, the same in-kernel digit
+check, raised after the launch, and launch shape (``ops/u1_cuda.py``).
 """
 
 from __future__ import annotations
@@ -14,8 +20,9 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .ring_stream import (barrett_m, check_big_operand, check_q,
-                          launch_shape, ring_stream_plain)
+from .ring_stream import barrett_m, check_q, ring_stream_plain
+from .u1_cuda import (check_limb_mode, digit_limbs, launch_shape,
+                      raise_if_flagged)
 from .zq import is_big
 
 KERNEL = cuda_lib.KernelInfo(
@@ -28,13 +35,15 @@ KERNEL_BIG = cuda_lib.KernelInfo(
     replaces="labrador_tpu/ops/cd_pallas.py:128")
 
 
-def cd_sum(crs, dig_stream: torch.Tensor, base_off: int,
-           t_used: int) -> torch.Tensor:
+def cd_sum(crs, dig_stream: torch.Tensor, base_off: int, t_used: int,
+           digit_base: int = 0) -> torch.Tensor:
     """(kappa_2, d) mod q for dig_stream (n_tri, t_used, d) digits
     (residues mod q, or signed at big q); base_off is ``crs._off_c`` or
-    ``crs._off_d``."""
+    ``crs._off_d``; digit_base bounds the digits, |digit| <= digit_base //
+    2 (b_2 for C; the default 0 means b_1, the D-term's, as in the Pallas
+    kernel)."""
     if dig_stream.is_cuda:
-        return _launch(crs, dig_stream, base_off, t_used)
+        return _launch(crs, dig_stream, base_off, t_used, digit_base)
     if dig_stream.device.type == "cpu":
         return cd_sum_plain(crs, dig_stream, base_off, t_used)
     raise ValueError(f"no C/D kernel for device {dig_stream.device}")
@@ -59,28 +68,41 @@ def cd_sum_plain(crs, dig_stream: torch.Tensor, base_off: int,
     return ring_stream_plain(draw, dig, p.kappa_2, p.q)[0]
 
 
-def _launch(crs, dig_stream: torch.Tensor, base_off: int,
-            t_used: int) -> torch.Tensor:
+def stream_digit_limbs(crs, digit_base: int = 0) -> int:
+    """The kernel's digit-limb count for digits of base digit_base (b_1
+    when 0), as the Pallas kernel counts them; raises if the kernel has no
+    such mode."""
+    p = crs.params
+    n_limbs = digit_limbs(digit_base or p.b_1)
+    check_limb_mode(p.q, n_limbs)
+    return n_limbs
+
+
+def _launch(crs, dig_stream: torch.Tensor, base_off: int, t_used: int,
+            digit_base: int) -> torch.Tensor:
     p = crs.params
     check_q(p.q, p.d)
     n_tri = dig_stream.shape[0]
     cuda_lib.require_cuda_operand(dig_stream, "dig_stream",
                                   (n_tri, t_used, p.d))
-    check_big_operand(dig_stream, p.q, "dig_stream")
+    n_limbs = stream_digit_limbs(crs, digit_base)
     L = n_tri * t_used
     if L >= 1 << 31 or p.kappa_2 * p.d >= 1 << 31:
         raise ValueError("C/D shape beyond the kernel's int32 indexing")
-    splits = launch_shape(p.kappa_2, 1, L)
-    part = torch.empty((splits, 1, p.kappa_2, p.d), dtype=torch.int64,
+    tiles, groups, splits, l_per_split = launch_shape(p.kappa_2, L)
+    part = torch.empty((splits, p.kappa_2, p.d), dtype=torch.int64,
                        device=dig_stream.device)
     out = torch.empty((p.kappa_2, p.d), dtype=torch.int64,
                       device=dig_stream.device)
+    bad = torch.empty((1,), dtype=torch.int32, device=dig_stream.device)
     lib = cuda_lib.load().lib
     err = lib.cd_sum_launch(
-        dig_stream.data_ptr(), part.data_ptr(), out.data_ptr(), L, t_used,
+        dig_stream.data_ptr(), part.data_ptr(), out.data_ptr(),
+        bad.data_ptr(), L, t_used,
         p.t_1, p.kappa_2, p.q, barrett_m(p.q), base_off, crs.key[0],
-        crs.key[1], splits,
+        crs.key[1], n_limbs, tiles, groups, splits, l_per_split,
         cuda_lib.stream_ptr(dig_stream.device))
     cuda_lib.check(err)
     (KERNEL_BIG if is_big(p.q) else KERNEL).launches += 1
+    raise_if_flagged(bad, dig_stream, p.q, n_limbs)
     return out

@@ -79,16 +79,6 @@ def matmul_mod(a: torch.Tensor, b: torch.Tensor, m, a_max: int,
     return acc
 
 
-def matmul_exact(a: torch.Tensor, b: torch.Tensor, a_max: int,
-                 b_max: int) -> torch.Tensor:
-    """Exact integer a @ b (int64) for |a| <= a_max, |b| <= b_max whose
-    whole contraction stays below 2**53 (asserted)."""
-    assert a.shape[-1] * a_max * b_max < F64_EXACT, \
-        "contraction exceeds the float64 exact range"
-    return torch.matmul(a.to(torch.float64),
-                        b.to(torch.float64)).to(torch.int64)
-
-
 def u64_sum(x: torch.Tensor) -> int:
     """Sum of nonnegative int64 values below 2**62, as a Python int mod
     2**64 (the JAX ``u64_sum`` contract).  The 31-bit halves are summed

@@ -9,14 +9,15 @@ product of an entry and a centred operand (both up to q/2 ~ 2^31) is
 beyond float64's exact range, so the contraction runs per CRT prime and
 one signed Garner fold (``zq.fold_res_modq``) gives the sum mod q, as the
 JAX package's XLA path does.  This is what ``csrc/threefry.cuh``'s
-ring-stream kernel and ``csrc/u1.cu``'s tensor-core kernel compute; the
-CPU path and the tests use it, and
+ring-stream kernel (Ajtai) and ``csrc/mma_stream.cuh``'s tensor-core
+kernel (u1, C/D) compute; the CPU path and the tests use it, and
 ``chip_smoke.py`` holds the kernels against it.  The operands may be
 residues in [0, q) or signed values of magnitude at most q/2 (the big-q
 convention of the JAX package: signed digits and witness); the kernel and
-this version centre them alike.  Also the shared launch plumbing of the
-three CUDA wrappers, and the Barrett constant of the kernels' reduction
-of a Threefry word.
+this version centre them alike.  Also the modulus check of the three
+CUDA wrappers, the ring-stream kernel's launch shape and operand check
+(Ajtai), and the Barrett constant of the kernels' reduction of a Threefry
+word.
 """
 
 from __future__ import annotations

@@ -12,9 +12,12 @@ t digits in the order of the JAX package's stream.
 The kernel takes the products on int8 tensor cores: CRS entries as
 ``entry_limbs(q)`` unsigned 8-bit limbs of the canonical residue, digits
 as ``digit_limbs(b_1)`` signed ones (the Pallas kernel's count), int32
-sums per limb weight flushed every ``FLUSH_L`` ring elements.  The wrapper
-checks the digits against what those limbs hold (``check_digit_range``)
-and raises outside it.
+sums per limb weight flushed every ``FLUSH_L`` ring elements.  The kernel
+checks each digit against what those limbs hold as it loads it and sets a
+flag; the wrapper reads the flag after the launch (one device sync) and
+raises (``raise_if_flagged``).  The kernel is the stream kernel of
+``csrc/mma_stream.cuh``, which the C/D sums (``ops/cd_cuda.py``) share
+through their own offset; its limb scheme and launch shape live here.
 """
 
 from __future__ import annotations
@@ -70,13 +73,15 @@ def u1_bterm_plain(crs, t_dig: torch.Tensor) -> torch.Tensor:
     return ring_stream_plain(draw, _stream(t_dig, p), p.kappa_1, p.q)[0]
 
 
-# The kernel's limb scheme and launch constants (csrc/u1.cu).
+# The stream kernel's limb scheme and launch constants
+# (csrc/mma_stream.cuh).
 SMALL_ENTRY_LIMBS = 2     # residues below q <= 32513 < 2^15
 BIG_ENTRY_LIMBS = 5       # residues below q < 2^33: four bytes, the top bit
 MAX_DIGIT_LIMBS = 4
-FLUSH_L = 256             # ring elements between the int32 flushes
+FLUSH_L = 256             # ring elements a warp adds between int32 flushes
 _LC = 16                  # ring elements per shared chunk
-_MAX_WARPS = 8            # 8-row tiles per block
+_MAX_WARPS = 8            # warps per block
+_MAX_GROUP_TILES = 4      # row tiles of a block whose warps split l
 # warps the launch aims for: 16 on each of the H100's 132 SMs
 _TARGET_WARPS = 16 * 132
 
@@ -103,13 +108,19 @@ def limb_cover(n: int) -> int:
     return 127 * (256**n - 1) // 255
 
 
+def check_limb_mode(q: int, n_limbs: int) -> None:
+    """Raise if the kernel has no mode with ``n_limbs`` digit limbs at q
+    (1-2 at small q, 1-4 at big q).  No device work."""
+    if not 1 <= n_limbs <= (MAX_DIGIT_LIMBS if is_big(q) else 2):
+        raise ValueError(f"no u1 kernel mode with {n_limbs} digit limbs at "
+                         f"q = {q}")
+
+
 def check_digit_range(t_dig: torch.Tensor, q: int, n_limbs: int) -> None:
     """Raise if a digit, centred as the kernel and the plain version centre
     it (x > q/2 -> x - q), is beyond ``n_limbs`` signed limbs, or if the
     kernel has no mode with that many.  One device sync on the card."""
-    if not 1 <= n_limbs <= (MAX_DIGIT_LIMBS if is_big(q) else 2):
-        raise ValueError(f"no u1 kernel mode with {n_limbs} digit limbs at "
-                         f"q = {q}")
+    check_limb_mode(q, n_limbs)
     if not t_dig.numel():
         return
     top = int(torch.max(torch.abs(to_signed_small(t_dig, q))))
@@ -119,19 +130,41 @@ def check_digit_range(t_dig: torch.Tensor, q: int, n_limbs: int) -> None:
                          f"(|digit| <= {limb_cover(n_limbs)})")
 
 
-def launch_shape(rows: int, L: int) -> tuple[int, int, int]:
-    """(warps per block, splits, ring elements per split) of the u1 launch:
-    blocks of up to 8 warps, one 8-row tile each, so that a block shares
-    its circulant among its warps; the l stream split over grid.x until the
-    grid holds about _TARGET_WARPS warps (kappa_1 = 256: 4 row blocks x 64
-    splits; the folded kappa_1 = 16: blocks of 2 warps, ~1000 splits)."""
-    warps = min(_MAX_WARPS, -(-rows // 8))
-    row_blocks = -(-rows // (8 * warps))
-    want = -(-_TARGET_WARPS // (row_blocks * warps))
-    splits = max(1, min(want, -(-L // _LC)))
-    per = -(-L // splits)
-    l_per_split = -(-per // _LC) * _LC
-    return warps, -(-L // l_per_split), l_per_split
+def raise_if_flagged(bad: torch.Tensor, digits: torch.Tensor, q: int,
+                     n_limbs: int) -> None:
+    """After a launch: raise if the kernel flagged a digit beyond its limbs
+    (``bad`` nonzero; reading it is the one device sync), with
+    ``check_digit_range``'s message."""
+    if int(bad.item()):
+        check_digit_range(digits, q, n_limbs)
+        raise ValueError(f"the stream kernel flagged a digit beyond its "
+                         f"{n_limbs} limbs")
+
+
+def launch_shape(rows: int, L: int) -> tuple[int, int, int, int]:
+    """(tiles, groups, splits, ring elements per split) of a stream-kernel
+    launch: blocks of up to 8 warps, ``tiles`` 8-row tiles times ``groups``
+    warps that split each chunk's ring elements, the l stream split over
+    grid.x until the grid holds about _TARGET_WARPS warps.  The most tiles
+    per block that still come near that target (a block's digit loads and
+    circulant serve all its rows): kappa = 256 with a long stream, 8 tiles
+    x 64 splits; kappa' = 16, 2 tiles x 4 groups, about 260 splits of
+    hundreds of ring elements at L ~ 10^5; a short stream (the 2^14
+    C-term, L = 136), 1 tile x 8 groups over 32 row blocks."""
+    tiles = min(_MAX_WARPS, -(-rows // 8))
+    while True:
+        groups = _MAX_WARPS // tiles if tiles <= _MAX_GROUP_TILES else 1
+        row_blocks = -(-rows // (8 * tiles))
+        want = -(-_TARGET_WARPS // (row_blocks * tiles * groups))
+        per = -(-L // max(1, min(want, -(-L // _LC))))
+        l_per_split = -(-per // _LC) * _LC
+        splits = -(-L // l_per_split)
+        # three quarters of the target, so that the rounding of a split to
+        # whole chunks does not cost a long stream its row tiles
+        if tiles == 1 or 4 * splits * row_blocks * tiles * groups \
+                >= 3 * _TARGET_WARPS:
+            return tiles, groups, splits, l_per_split
+        tiles = 1 << (min(tiles - 1, _MAX_GROUP_TILES).bit_length() - 1)
 
 
 def _launch(crs, t_dig: torch.Tensor) -> torch.Tensor:
@@ -139,23 +172,26 @@ def _launch(crs, t_dig: torch.Tensor) -> torch.Tensor:
     check_q(p.q, p.d)
     cuda_lib.require_cuda_operand(t_dig, "t_dig", (p.t_1, p.r, p.kappa, p.d))
     n_limbs = digit_limbs(p.b_1)
-    check_digit_range(t_dig, p.q, n_limbs)
+    check_limb_mode(p.q, n_limbs)
     m_total = p.r * p.t_1
     L = m_total * p.kappa
     if L >= 1 << 31 or p.kappa_1 * p.d >= 1 << 31:
         raise ValueError("u1 shape beyond the kernel's int32 indexing")
     stream = _stream(t_dig, p)
-    warps, splits, l_per_split = launch_shape(p.kappa_1, L)
+    tiles, groups, splits, l_per_split = launch_shape(p.kappa_1, L)
     part = torch.empty((splits, 1, p.kappa_1, p.d), dtype=torch.int64,
                        device=t_dig.device)
     out = torch.empty((p.kappa_1, p.d), dtype=torch.int64,
                       device=t_dig.device)
+    bad = torch.empty((1,), dtype=torch.int32, device=t_dig.device)
     lib = cuda_lib.load().lib
     err = lib.u1_bterm_launch(
-        stream.data_ptr(), part.data_ptr(), out.data_ptr(), m_total, p.kappa,
+        stream.data_ptr(), part.data_ptr(), out.data_ptr(), bad.data_ptr(),
+        m_total, p.kappa,
         p.kappa_1, p.q, barrett_m(p.q), crs._off_b, crs.key[0], crs.key[1],
-        n_limbs, warps, splits, l_per_split,
+        n_limbs, tiles, groups, splits, l_per_split,
         cuda_lib.stream_ptr(t_dig.device))
     cuda_lib.check(err)
     (KERNEL_BIG if is_big(p.q) else KERNEL).launches += 1
+    raise_if_flagged(bad, t_dig, p.q, n_limbs)
     return out

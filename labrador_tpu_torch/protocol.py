@@ -8,8 +8,7 @@ eval-domain tensor algebra.  At big q the JAX package accumulates the
 scalar aggregations per CRT prime and folds once, to avoid 66-bit
 products in int32 lanes; here residues are int64 and ``modmath.mulmod``
 takes each product of two residues exactly, so both moduli share one code
-path.  Only the conventions differ: at big q the digits are signed, and
-sigma^-1 of the ternary JL rows stays signed.
+path.  Only the conventions differ: at big q the digits are signed.
 """
 
 from __future__ import annotations
@@ -37,32 +36,36 @@ def aggregate_a_pp(a_prime: torch.Tensor, psi: torch.Tensor,
     return mod_pos(torch.sum(terms, dim=1), q)
 
 
-def sigma_inv_pi(pi: torch.Tensor, params: LabradorParams) -> torch.Tensor:
-    """sigma^-1 on every JL row viewed as n ring elements:
-    (r, 256, n*d) int8 -> (r, 256, n*d) mod q, or signed ternary at big q."""
-    p = params
-    if zq.is_big(p.q):
-        polys = pi.to(torch.int64).reshape(p.r, 256, p.n, p.d)
-        return rq.sigma_inv(polys, None).reshape(p.r, 256, p.n * p.d)
-    polys = mod_pos(pi.to(torch.int64), p.q).reshape(p.r, 256, p.n, p.d)
-    return rq.sigma_inv(polys, p.q).reshape(p.r, 256, p.n * p.d)
+# Ring elements of the JL rows per float64 product of the phi''
+# aggregation: the float64 copy of one slice of pi takes 256 * d * 8 bytes
+# per element (512 elements: 64 MiB); pi itself stays int8.
+JL_AGG_ELEMS = 512
 
 
 def aggregate_phi_pp(phi_prime: torch.Tensor, psi: torch.Tensor,
-                     omega: torch.Tensor, pi_sigma: torch.Tensor,
+                     omega: torch.Tensor, pi: torch.Tensor,
                      params: LabradorParams) -> torch.Tensor:
     """phi''_k,i = sum_l psi_k[l] phi'_l,i + sum_j omega_k[j]
-    sigma^-1(pi_i^(j)) -> (ub, r, n, d)."""
+    sigma^-1(pi_i^(j)) -> (ub, r, n, d), with pi the (r, 256, n*d) int8
+    JL matrices.  sigma^-1 of a ternary row stays signed ternary, so each
+    slice of JL_AGG_ELEMS ring elements is conjugated and contracted with
+    omega on its own: |sum| <= 256 * q < 2^53, exact in float64; only the
+    result is reduced mod q (the same residues as conjugating mod q)."""
     p = params
     ub = omega.shape[0]
     lhs = mod_pos(torch.sum(
         mulmod(phi_prime[None], psi[:, :, None, None, None], p.q), dim=1),
         p.q)
-    # omega (ub, 256) @ pi_sigma_i (256, n*d) for every i; at big q
-    # pi_sigma is signed ternary, which keeps the float64 contraction exact
-    pi_max = 1 if zq.is_big(p.q) else p.q - 1
-    rhs = matmul_mod(omega[None], pi_sigma, p.q, p.q - 1, pi_max)
-    rhs = torch.movedim(rhs, 0, 1).reshape(ub, p.r, p.n, p.d)
+    rhs = torch.empty((ub, p.r, p.n, p.d), dtype=torch.int64,
+                      device=omega.device)
+    for i in range(p.r):
+        for e0 in range(0, p.n, JL_AGG_ELEMS):
+            e1 = min(p.n, e0 + JL_AGG_ELEMS)
+            rows = pi[i, :, e0 * p.d:e1 * p.d].reshape(256, e1 - e0, p.d)
+            sig = rq.sigma_inv(rows.to(torch.int64), None)
+            rhs[:, i, e0:e1] = matmul_mod(
+                omega, sig.reshape(256, -1), p.q, p.q - 1, 1).reshape(
+                    ub, e1 - e0, p.d)
     return mod_pos(lhs + rhs, p.q)
 
 
@@ -128,9 +131,8 @@ def canonical_aggregates(params: LabradorParams, state, proof):
     p = params
     plan = ntt_ops.plan_for(p)
     a_pp = aggregate_a_pp(state.a_prime_k[:p.l_count], proof.psi, p.q)
-    pi_sigma = sigma_inv_pi(proof.pi, p)
     phi_pp = aggregate_phi_pp(state.phi_prime_k[:p.l_count], proof.psi,
-                              proof.omega, pi_sigma, p)
+                              proof.omega, proof.pi, p)
     alpha_hat = ntt_ops.ntt_fwd(proof.alpha, plan)
     beta_hat = ntt_ops.ntt_fwd(proof.beta, plan)
     a_pp_hat = ntt_ops.ntt_fwd(a_pp, plan)
@@ -176,7 +178,7 @@ def u1_from_digits(crs, t_dig: torch.Tensor, g_dig: torch.Tensor,
     """u1 = sum_{i,k} B_ik t_i^(k) + sum_{i<=j,k} C_ijk g_ij^(k) -> (kappa_1, d)."""
     p = params
     bterm = u1_bterm(crs, t_dig.contiguous())
-    cterm = cd_sum(crs, _tri_stream(g_dig, p), crs._off_c, p.t_2)
+    cterm = cd_sum(crs, _tri_stream(g_dig, p), crs._off_c, p.t_2, p.b_2)
     return zq.add(bterm, cterm, p.q)
 
 

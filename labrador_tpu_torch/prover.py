@@ -18,8 +18,7 @@ from . import protocol, sampling
 from .keys import Key, fold_in, split
 from .ops import ntt as ntt_ops
 from .ops import zq
-from .ops.modmath import (matmul_exact, mod_pos, mulmod, sum_sq_u64,
-                          to_signed_i32)
+from .ops.modmath import mod_pos, mulmod, sum_sq_u64, to_signed_i32
 from .oracle import DOM_BPP, DOM_JL, DOM_U1, DOM_U2, InteractiveOracle
 from .params import LabradorParams
 from .structs import State, Transcript, gram_hat
@@ -46,23 +45,80 @@ def resolve_backend(device) -> str:
     raise ValueError(f"no kernels for device type {kind!r}")
 
 
+# Witness columns per float64 product of the JL projection.  A partial
+# sum of one chunk is at most JL_CHUNK * 128 in magnitude, exact in
+# float64, and the float64 copy of one chunk of a JL matrix takes
+# 256 * JL_CHUNK * 8 bytes (128 MiB); the matrix itself stays int8.
+JL_CHUNK = 1 << 16
+JL_LIMBS = 4
+
+
+def sample_jl(key: Key, params: LabradorParams, device="cuda"):
+    """The JL matrices of one attempt: (r, 256, n*d) int8, one ternary
+    matrix per witness vector from split(key, r)."""
+    return torch.stack([sampling.sample_jl_matrix(k, params, device)
+                        for k in split(key, params.r)])
+
+
+def jl_limb_dots(pi: torch.Tensor, w_c: torch.Tensor) -> torch.Tensor:
+    """The JAX package's four int8 limb dots of the JL projection.
+
+    pi (r, R, m) int8 ternary, w_c (r, m) signed witness in the int32 range
+    (any integers: only their value mod 2^32 counts).  Each limb
+    ``((v + 128) & 255) - 128`` of v, then ``v = (v - limb) >> 8``, is
+    contracted with pi over all r*m columns; the JAX package accumulates
+    that dot in int32, whose wrapped sum is the exact sum mod 2^32 in any
+    order.  Here each JL_CHUNK-column slice of pi is widened to float64 on
+    its own, its exact partial sums are added in int64 with no device
+    sync, and the totals are wrapped to int32 at the end.  Returns (R, 4)
+    int64 in the int32 range, limb k in column k."""
+    r, rows, m = pi.shape
+    v = to_signed_i32(w_c.to(torch.int64))
+    limbs = []
+    for _ in range(JL_LIMBS):
+        limb = ((v + 128) & 255) - 128
+        limbs.append(limb)
+        v = (v - limb) >> 8
+    limbs = torch.stack(limbs, dim=-1).to(torch.int8)         # (r, m, 4)
+    acc = torch.zeros((rows, JL_LIMBS), dtype=torch.int64, device=pi.device)
+    for i in range(r):
+        for c0 in range(0, m, JL_CHUNK):
+            c1 = min(m, c0 + JL_CHUNK)
+            part = pi[i, :, c0:c1].to(torch.float64) \
+                @ limbs[i, c0:c1].to(torch.float64)
+            acc += part.to(torch.int64)
+    return to_signed_i32(acc)
+
+
+def jl_recombine(dots: torch.Tensor):
+    """The JAX package's emulated i64 ``((d3*256 + d2)*256 + d1)*256 + d0``
+    of the (R, 4) limb dots (exact in int64: |d3 * 2^24| < 2^55), ``fits``
+    as "the high word is the sign extension of the low one", that is the
+    value lies in the int32 range, and the projection as the low word.
+    Returns (proj (R,) int64 in the int32 range, fits bool)."""
+    acc = dots[:, 3]
+    for k in (2, 1, 0):
+        acc = acc * 256 + dots[:, k]
+    fits = bool(torch.all((acc >= -(1 << 31)) & (acc < (1 << 31))))
+    return to_signed_i32(acc), fits
+
+
+def jl_projection(pi: torch.Tensor, w_c: torch.Tensor):
+    """Projection of the centred witness w_c (r, m) by pi (r, 256, m) int8
+    as the JAX package computes it, exact at every size: (proj (256,)
+    int64 in the int32 range, fits)."""
+    return jl_recombine(jl_limb_dots(pi, w_c))
+
+
 def jl_project(key: Key, witness_flat: torch.Tensor, params: LabradorParams):
-    """One JL attempt: ternary Pi per witness vector and the exact integer
-    projection of the centred witness.  Returns (pi (r, 256, n*d) int8,
-    projection (256,) int32-range int64, ok)."""
+    """One JL attempt: ternary Pi per witness vector and the projection of
+    the centred witness.  Returns (pi (r, 256, n*d) int8, projection (256,)
+    int32-range int64, ok)."""
     p = params
-    dev = witness_flat.device
-    pi = torch.stack([sampling.sample_jl_matrix(k, p, dev)
-                      for k in split(key, p.r)])
-    # centred residues, and the signed int32 witness at big q, both lie
-    # within q/2 in magnitude
-    w_c = zq.to_signed_small(witness_flat, p.q)
-    pi_flat = torch.movedim(pi, 1, 0).reshape(256, -1).to(torch.int64)
-    proj = matmul_exact(pi_flat, w_c.reshape(-1, 1), 1, p.q // 2)[:, 0]
-    # the JAX package keeps the low int32 word and flags values that do not
-    # fit; a per-entry bound keeps the 256-term sum of squares exact
-    fits = bool(torch.all((proj >= -(1 << 31)) & (proj < (1 << 31))))
-    proj = to_signed_i32(proj)
+    pi = sample_jl(key, p, witness_flat.device)
+    # centred residues, and the signed int32 witness at big q
+    proj, fits = jl_projection(pi, zq.to_signed_small(witness_flat, p.q))
+    # a per-entry bound keeps the 256-term sum of squares exact
     bound = 128 * p.beta_bound * p.beta_bound
     entry_max = min(math.isqrt(bound), 2**31 - 1)
     ok = fits and bool(torch.all(torch.abs(proj) <= entry_max)) \
@@ -126,9 +182,8 @@ def prove_phase2b(params: LabradorParams, witness: torch.Tensor,
     omega = torch.stack([sampling.sample_omega(
         oracle.challenge_key(ost, TAG_OMEGA, i), p, dev) for i in range(ub)])
     a_pp = protocol.aggregate_a_pp(state.a_prime_k[:p.l_count], psi, p.q)
-    pi_sigma = protocol.sigma_inv_pi(pi, p)
     phi_pp = protocol.aggregate_phi_pp(state.phi_prime_k[:p.l_count], psi,
-                                       omega, pi_sigma, p)
+                                       omega, pi, p)
     a_pp_hat = ntt_ops.ntt_fwd(a_pp, plan)
     phi_pp_hat = ntt_ops.ntt_fwd(phi_pp, plan)
     # multiply only transforms of reduced tensors (CRT-range invariant)

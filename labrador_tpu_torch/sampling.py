@@ -69,27 +69,76 @@ def _challenge_multiset(d: int) -> torch.Tensor:
 
 
 @lru_cache(maxsize=None)
-def _eval_matrices(d: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin of the (d, d) evaluation at the primitive 2d-th roots, as the
-    JAX package builds them (float64 angles rounded to float32)."""
+def _eval_matrices(d: int) -> np.ndarray:
+    """cos | sin of the (d, d) evaluation at the primitive 2d-th roots, as
+    the JAX package builds them (float64 angles rounded to float32), side
+    by side: (d, 2d) float32, the real part's columns first."""
     j = np.arange(d)[:, None]
     k = np.arange(d)[None, :]
     ang = np.pi * (2 * k + 1) * j / d
-    return (torch.from_numpy(np.cos(ang).astype(np.float32)),
-            torch.from_numpy(np.sin(ang).astype(np.float32)))
+    return np.concatenate([np.cos(ang), np.sin(ang)],
+                          axis=1).astype(np.float32)
 
 
-def operator_norm_sq(c_centered: torch.Tensor, d: int) -> float:
-    """Squared exact operator norm of multiplication by c: max_k
-    |c(omega^(2k+1))|^2.  Evaluated in float64 from the JAX package's
-    float32 tables; the JAX package evaluates in float32, so the two
-    rejection decisions can differ only for a norm within float32 rounding
-    of T (the parity tests check the margin of every draw they compare)."""
-    er, ei = _eval_matrices(d)
-    cf = c_centered.to(torch.float64).cpu()
-    re = cf @ er.to(torch.float64)
-    im = cf @ ei.to(torch.float64)
-    return float(torch.max(re * re + im * im))
+# XLA on the CPU takes the float32 (d,) @ (d, d) product of the JAX
+# package's ``operator_norm_exact`` as 8 partial sums, lane a over the
+# coefficients j = a mod 8 in increasing j, combined pairwise
+# ((s0 + s1) + (s2 + s3)) + ((s4 + s5) + (s6 + s7)), and contracts
+# re*re + im*im into one fused multiply-add, fma(re, re, im*im).  The
+# port evaluates the same operations in the same order, on the host.
+_LANES = 8
+
+
+def _fma_f32(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """Correctly rounded float32 a*b + c for float32 arrays (one rounding,
+    as a fused multiply-add): a*b is exact in float64, the float64 sum
+    carries its exact error (TwoSum), and that error decides the one case
+    where rounding the float64 sum to float32 can differ, a float64 sum
+    that falls exactly halfway between two float32 values."""
+    x, y = a.astype(np.float64) * b, c.astype(np.float64)
+    s = x + y
+    bb = s - x
+    err = (x - (s - bb)) + (y - bb)
+    r = s.astype(np.float32)
+    r2 = np.nextafter(r, np.where(s > r, np.inf, -np.inf).astype(np.float32))
+    mid = (s != r) & (s == (r.astype(np.float64) + r2) / 2)
+    return np.where(mid & (err > 0), np.maximum(r, r2),
+                    np.where(mid & (err < 0), np.minimum(r, r2), r))
+
+
+def operator_norm_sq(c_centered, d: int) -> np.ndarray:
+    """Squared exact operator norm of multiplication by c, max_k
+    |c(omega^(2k+1))|^2, in float32 as the JAX package's
+    ``operator_norm_exact`` computes it on the CPU (the order above).
+    c_centered (..., d) integers (a tensor or an array); returns (...)
+    float32, computed on the host whatever the tensor's device."""
+    if isinstance(c_centered, torch.Tensor):
+        c_centered = c_centered.cpu().numpy()
+    cf = np.asarray(c_centered).astype(np.float32)
+    lead = cf.shape[:-1]
+    lanes = min(_LANES, d)
+    assert d % lanes == 0 and lanes & (lanes - 1) == 0, d
+    cf = cf.reshape(lead + (d // lanes, lanes, 1))
+    m = _eval_matrices(d).reshape(d // lanes, lanes, 2 * d)
+    acc = cf[..., 0, :, :] * m[0]
+    for s in range(1, d // lanes):
+        acc = acc + cf[..., s, :, :] * m[s]       # (..., lanes, 2d)
+    while acc.shape[-2] > 1:
+        acc = acc[..., 0::2, :] + acc[..., 1::2, :]
+    re, im = acc[..., 0, :d], acc[..., 0, d:]
+    return np.max(_fma_f32(re, re, im * im), axis=-1)
+
+
+def challenge_rejected(c_centered, d: int) -> np.ndarray:
+    """The JAX package's rejection decision, sqrt(max(re^2 + im^2)) > T in
+    float32, for (..., d) centred polynomials.  For a float32 x >= 0 the
+    correctly rounded sqrt(x) exceeds T = 15 iff x > 225: the float32 just
+    above 15 is 15 + 2^-20, the halfway point rounds to 15 (even), and
+    (15 + 2^-21)^2 lies between 225 and the next float32, 225 + 2^-16.  So
+    the decision needs no sqrt, whose float32 rounding torch's CPU kernel
+    does not guarantee."""
+    assert T_OPNORM == 15
+    return operator_norm_sq(c_centered, d) > np.float32(225)
 
 
 def _draw_challenge(key: Key, d: int) -> torch.Tensor:
@@ -109,7 +158,7 @@ def sample_challenge(key: Key, params: LabradorParams,
     k = keys.fold_in(key, 0)
     centered = _draw_challenge(k, p.d)
     for _ in range(_MAX_CHALLENGE_DRAWS):
-        if operator_norm_sq(centered, p.d) <= T_OPNORM * T_OPNORM:
+        if not challenge_rejected(centered, p.d):
             if zq.is_big(p.q):
                 return centered.to(device)
             return mod_pos(centered, p.q).to(device)

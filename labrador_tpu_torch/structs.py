@@ -154,11 +154,17 @@ def _bincode_poly_vec(arr: np.ndarray, chunk_rows: int = 1 << 16):
         yield rows.tobytes()
 
 
-def _bincode_zq_vec(arr: np.ndarray, chunk: int = 1 << 22):
+def _bincode_zq_vec(arr: np.ndarray, chunk: int = 1 << 22,
+                    mod: int | None = None):
+    """Vec<Zq>: u64 count, then i128 values; ``mod`` reduces each chunk
+    (the int8 JL matrices, widened one chunk at a time)."""
     arr = arr.reshape(-1)
     yield len(arr).to_bytes(8, "little")
     for s in range(0, arr.size, chunk):
-        yield _i128_le(arr[s:s + chunk]).tobytes()
+        blk = arr[s:s + chunk]
+        if mod is not None:
+            blk = blk.astype(np.int64) % mod
+        yield _i128_le(blk).tobytes()
 
 
 def bincode_chunks(tr: Transcript, q: int, fs: bool = False):
@@ -167,7 +173,7 @@ def bincode_chunks(tr: Transcript, q: int, fs: bool = False):
     verifier re-derives (pi, psi, omega, alpha, beta, c)."""
     parts = [_bincode_poly_vec(_np(tr.u_1))]
     if not fs:
-        parts.append(_bincode_zq_vec(_np(tr.pi).astype(np.int64) % q))
+        parts.append(_bincode_zq_vec(_np(tr.pi), mod=q))
     parts.append(_bincode_zq_vec(_np(tr.projection)))
     if not fs:
         parts += [_bincode_zq_vec(_np(tr.psi)), _bincode_zq_vec(_np(tr.omega))]

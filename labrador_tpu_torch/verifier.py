@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from . import protocol
@@ -21,15 +22,51 @@ from .params import LabradorParams
 from .structs import State, Transcript
 
 
+# XLA on the CPU splits a float32 sum over a dimension longer than 32
+# (TreeReductionRewriter): each such dimension is padded with zeros to a
+# multiple of 32, half of the padding in front, and cut into windows of
+# 32; every dimension of 32 or fewer is one window.  Each window is summed
+# in row-major order from 0, and the windows' sums are reduced the same
+# way, until no dimension is longer than 32.
+_XLA_WINDOW = 32
+
+
+def _xla_f32_sum(x: np.ndarray, axes: tuple) -> np.ndarray:
+    """float32 sum of ``x`` over ``axes`` in XLA's CPU order (above)."""
+    axes = tuple(sorted(a % x.ndim for a in axes))
+    if all(x.shape[a] <= _XLA_WINDOW for a in axes):
+        keep = [a for a in range(x.ndim) if a not in axes]
+        flat = np.transpose(x, keep + list(axes)).reshape(
+            [x.shape[a] for a in keep] + [-1])
+        # cumsum is a strictly sequential float32 accumulation
+        return np.cumsum(flat, axis=-1, dtype=np.float32)[..., -1]
+    pad, shape, win_axes, count_axes = [], [], [], []
+    for a, n in enumerate(x.shape):
+        w = min(_XLA_WINDOW, n) if a in axes else n
+        extra = -n % w
+        pad.append((extra // 2, extra - extra // 2))
+        if a in axes:
+            count_axes.append(len(shape) - len(win_axes))
+            win_axes.append(len(shape) + 1)
+            shape += [(n + extra) // w, w]
+        else:
+            shape.append(n)
+    parts = _xla_f32_sum(np.pad(x, pad).reshape(shape), tuple(win_axes))
+    return _xla_f32_sum(parts, tuple(count_axes))
+
+
 def check14_norm_bound(p: LabradorParams, z, z_dig, t_dig, g_dig, h_dig,
                        norm_mode: str = "exact") -> bool:
     """Check 14 (verification.rs:231-267): the centred digits' squared norm
     <= beta'^2, and in exact-digit mode also ||z||^2 <= 2 gamma.
 
     norm_mode='exact' sums exactly (Python-int result of int64 half sums);
-    'f64_reference' reproduces the reference's float accumulation in float32
-    as the JAX package does (per-polynomial sums, then their sum) — exact,
-    and so equal to the JAX result, while the totals stay below 2**24."""
+    'f64_reference' reproduces the reference's float accumulation in
+    float32 as the JAX package does on the CPU: per-polynomial sums over
+    the last axis, a total per digit tensor, then z + t + g + h, each in
+    XLA's order.  Above 2^24 the float32 verdict near the bound depends on
+    that order, so it is taken on the host in that one order whatever
+    device the digits are on."""
     digs = [zq.to_signed_small(x, p.q) for x in (z_dig, t_dig, g_dig, h_dig)]
     if norm_mode == "exact":
         total = sum(u64_sum(x * x) for x in digs) % (1 << 64)
@@ -44,11 +81,13 @@ def check14_norm_bound(p: LabradorParams, z, z_dig, t_dig, g_dig, h_dig,
                 and sum_sq_u64(z_c) <= gamma_z
         return ok
     if norm_mode == "f64_reference":
-        total = torch.zeros((), dtype=torch.float32, device=z.device)
+        total = np.float32(0)
         for x in digs:
-            total = total + torch.sum(torch.sum((x * x).to(torch.float32),
-                                                dim=-1))
-        return bool(total <= torch.tensor(p.beta_prime, dtype=torch.float32))
+            sq = (x * x).cpu().numpy().astype(np.float32)
+            per = _xla_f32_sum(sq, (-1,))
+            total = np.float32(total + _xla_f32_sum(
+                per, tuple(range(per.ndim))))
+        return bool(total <= np.float32(p.beta_prime))
     raise ValueError(f"unknown norm_mode {norm_mode!r}")
 
 

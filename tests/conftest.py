@@ -30,6 +30,9 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs a CUDA device; skips where there is none")
+    config.addinivalue_line(
+        "markers", "slow: regenerates a golden file from the JAX package "
+        "(minutes); deselected by the tier-1 command's -m 'not slow'")
 
 
 @pytest.fixture

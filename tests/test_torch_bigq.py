@@ -37,6 +37,7 @@ from labrador_tpu.params import LabradorParams as JParams
 from labrador_tpu_torch import cli as tcli
 from labrador_tpu_torch import crs as tcrs
 from labrador_tpu_torch import interop
+from labrador_tpu_torch import protocol as tprotocol
 from labrador_tpu_torch import sampling as tsampling
 from labrador_tpu_torch import structs as tstructs
 from labrador_tpu_torch import verifier as tverifier
@@ -620,3 +621,90 @@ def test_bigq_cli_cpu_verbose(torch_run, monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "Success: Proof Verified!" in out
     assert "(206314 B)" in out
+
+
+# ---------------------------------------------------------------------------
+# check 14's float mode at big q (tests/test_bigq_pipeline.py's crafted
+# streams, through both packages)
+# ---------------------------------------------------------------------------
+
+def _four_squares(n: int) -> list[int]:
+    """Any n >= 0 as a sum of four squares (Lagrange), values <= isqrt(n)."""
+    import math
+    a = math.isqrt(n)
+    while a >= 0:
+        r1 = n - a * a
+        b = math.isqrt(r1)
+        while b >= 0:
+            r2 = r1 - b * b
+            c = math.isqrt(r2)
+            while c >= 0:
+                r3 = r2 - c * c
+                dd = math.isqrt(r3)
+                if dd * dd == r3:
+                    return [a, b, c, dd]
+                c -= 1
+            b -= 1
+        a -= 1
+    raise AssertionError("unreachable (Lagrange)")
+
+
+def _craft_t_with_digit_total(p, target: int) -> np.ndarray:
+    """t values (r, kappa, d) int64 whose exact balanced-digit squared sum
+    is EXACTLY `target`: only the first 3 digit positions are used (values
+    stay < q/2, so the balanced decomposition returns the intended
+    digits).  A copy of tests/test_bigq_pipeline.py's helper."""
+    n_entries = p.r * p.kappa * p.d
+    slots = np.zeros((n_entries * 3,), np.int64)
+    half = p.b_1 // 2
+    rem = target
+    i = 0
+    while rem >= half * half and i < len(slots) - 4:
+        slots[i] = half
+        rem -= half * half
+        i += 1
+    assert i < len(slots) - 4, "target exceeds craftable digit budget"
+    for v in _four_squares(rem):
+        slots[i] = v
+        i += 1
+    digs = slots.reshape(n_entries, 3)
+    vals = (digs[:, 0] + digs[:, 1] * p.b_1 + digs[:, 2] * p.b_1 ** 2)
+    assert vals.max() < p.q // 2
+    return vals.reshape(p.r, p.kappa, p.d)
+
+
+# deltas from beta'^2 at which the float32 verdict differs from the exact
+# one, on the streams below (XLA's order on the CPU)
+C14_FLIPS = [-1, -278, -555]
+
+
+def test_c14_float_mode_equals_jax_at_big_q(jax_run):
+    """Streams whose exact digit total is beta'^2 + delta, delta across
+    +-15,000: in ``f64_reference`` mode the port's verdict is the JAX
+    package's on every one, including those where the float32 sum judges
+    wrongly (pinned), and the exact mode judges each correctly."""
+    proof = jax_run["proof"]
+    jdig = {k: getattr(jprotocol, f"decompose_{k}")(getattr(proof, k), JP1,
+                                                    "exact")
+            for k in "zgh"}
+    tdig = {k: interop.tensor(v, CPU) for k, v in jdig.items()}
+    z = interop.tensor(proof.z, CPU)
+    bound = int(JP1.beta_prime)
+    rest = int(sum((np.asarray(d, np.int64) ** 2).sum()
+                   for d in jdig.values()))
+    flips = []
+    for delta in [s * m for m in range(1, 15_000, 277) for s in (1, -1)]:
+        t_vals = _craft_t_with_digit_total(JP1, bound + delta - rest)
+        jt = jprotocol.decompose_t(jzq.from_py(t_vals, Q), JP1, "exact")
+        tt = tprotocol.decompose_t(interop.tensor(t_vals, CPU), TP1, "exact")
+        _eq(tt, jt)
+        want = bool(jverifier.check14_norm_bound(
+            JP1, proof.z, jdig["z"], jt, jdig["g"], jdig["h"],
+            "f64_reference"))
+        args = (TP1, z, tdig["z"], tt, tdig["g"], tdig["h"])
+        assert tverifier.check14_norm_bound(*args, "f64_reference") == want, \
+            delta
+        assert tverifier.check14_norm_bound(*args, "exact") == (delta <= 0)
+        if want != (delta <= 0):
+            flips.append(delta)
+    assert flips == C14_FLIPS

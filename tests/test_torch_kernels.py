@@ -309,3 +309,63 @@ def test_cuda_bigq_kernels_match_plain(q_start):
         assert torch.equal(got, want)
     assert ajtai_cuda.KERNEL_BIG.launches and u1_cuda.KERNEL_BIG.launches \
         and cd_cuda.KERNEL_BIG.launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use", ["C", "D"])
+@pytest.mark.parametrize("q, base", [(8191, 9), (8191, 8191),
+                                     (4294967311, 2), (4294967311, 1625),
+                                     (4294967311, 65536),
+                                     (8589934583, 1 << 24)])
+def test_cuda_cd_digit_modes_match_plain(q, base, use):
+    """Each digit-limb mode of the C/D kernel (1-2 limbs at small q, 1-4
+    at big q) at the folded kappa_2 = 16 shape, where a block's warps split
+    the stream, digits at the largest magnitude the limbs hold."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from labrador_tpu_torch.params import LabradorParams as TParams
+    big = q > 8191
+    p = TParams(n=13, r=15, q=q, k_count=51, l_count=1, kappa_override=16,
+                exact_digits=True)
+    n_limbs = u1_cuda.digit_limbs(base)
+    assert n_limbs == {2: 1, 9: 1, 1625: 2, 8191: 2, 65536: 3,
+                       1 << 24: 4}[base]
+    top = min(base // 2, u1_cuda.limb_cover(n_limbs))
+    rng = np.random.default_rng(base)
+    crs = TCRS.create(p, SEED)
+    base_off, t_used = ((crs._off_c, p.t_2) if use == "C"
+                        else (crs._off_d, p.t_1))
+    x = rng.choice([-top, top, 0, 1], (t_used, p.r, p.r, p.d))
+    stream = _tri_stream(_t(x if big else x % p.q).to("cuda"), p)
+    got = cd_cuda.cd_sum(crs, stream, base_off, t_used, base)
+    want = cd_cuda.cd_sum_plain(crs, stream, base_off, t_used)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [8191, 4294967311])
+def test_cuda_stream_kernels_raise_beyond_limbs(q):
+    """The u1 and C/D kernels flag a digit one beyond their limbs as they
+    load it, and the wrappers raise after the launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from labrador_tpu_torch.params import LabradorParams as TParams
+    p = TParams(n=13, r=15, q=q, k_count=51, l_count=1, kappa_override=16,
+                exact_digits=True)
+    object.__setattr__(p, "b_1", 9)              # one digit limb
+    object.__setattr__(p, "b_2", 9)
+    crs = TCRS.create(p, SEED)
+    over = u1_cuda.limb_cover(1) + 1
+    t_dig = torch.zeros((p.t_1, p.r, p.kappa, p.d), dtype=torch.int64)
+    t_dig[1, 2, 3, 4] = -over
+    h = torch.zeros((p.t_1, p.r, p.r, p.d), dtype=torch.int64)
+    h[0, 5, 6, 7] = over
+    h_str = _tri_stream(h.to("cuda") % q, p)
+    with pytest.raises(ValueError, match="beyond"):
+        u1_cuda.u1_bterm(crs, (t_dig % q).to("cuda"))
+    with pytest.raises(ValueError, match="beyond"):
+        cd_cuda.cd_sum(crs, h_str, crs._off_d, p.t_1)
+    h_str[h_str == over] = over - 1                  # within the limb
+    assert torch.equal(cd_cuda.cd_sum(crs, h_str, crs._off_d, p.t_1),
+                       cd_cuda.cd_sum_plain(crs, h_str, crs._off_d, p.t_1))

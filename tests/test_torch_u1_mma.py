@@ -1,5 +1,6 @@
-"""The arithmetic of the u1 B-term's tensor-core kernel (``csrc/u1.cu``),
-modelled on the CPU.
+"""The arithmetic of the tensor-core stream kernel of the u1 B-term and
+the C/D sums (``csrc/mma_stream.cuh``, with the offsets of ``csrc/u1.cu``
+and ``csrc/cd.cu``), modelled on the CPU.
 
 * The Barrett reduction of the 64-bit Threefry words (``barrett_mod`` in
   ``csrc/threefry.cuh``, shared with the Ajtai and C/D kernels), step by
@@ -9,8 +10,12 @@ modelled on the CPU.
   limbs of the residue, digits as signed 8-bit limbs, int32 sums per limb
   weight between flushes, recombination mod q) is bit-equal to the plain
   version at the config-1 shapes, at q = 8191 and at both big moduli,
-  with CRS entries drawn and forced to 0, q - 1, q/2 and q/2 + 1.
-* The wrapper's digit-range check raises for a digit beyond its limbs.
+  with CRS entries drawn and forced to 0, q - 1, q/2 and q/2 + 1; and
+  with the C/D offsets (the D-term over t_1, the C-term over t_2 < t_1,
+  where the offset is not affine in the stream index), digits at +-b/2 of
+  their base, bit-equal to ``cd_sum_plain``.
+* The wrappers' digit-range check raises for a digit beyond its limbs,
+  the C/D wrapper's too.
 
 On a CUDA machine, also the kernel in each of its digit-limb modes
 against the plain version, at the folded kappa_1 = 16 shape with digits
@@ -22,12 +27,13 @@ import pytest
 import torch
 
 from labrador_tpu_torch.crs import CRS
-from labrador_tpu_torch.ops import u1_cuda
+from labrador_tpu_torch.ops import cd_cuda, u1_cuda
 from labrador_tpu_torch.ops.modmath import mod_pos, mulmod
 from labrador_tpu_torch.ops.ring_stream import (barrett_m, circulant,
                                                 ring_stream_plain)
 from labrador_tpu_torch.ops.zq import to_signed_small
 from labrador_tpu_torch.params import LabradorParams
+from labrador_tpu_torch.protocol import _tri_stream
 
 Q_SMALL, Q_BIG, Q_TOP = 8191, 4294967311, 8589934583
 MODULI = [Q_SMALL, Q_BIG, Q_TOP]
@@ -185,6 +191,61 @@ def test_limb_model_matches_plain(q, entries):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("use", ["D", "C"])
+@pytest.mark.parametrize("q", MODULI)
+def test_cd_limb_model_matches_plain(q, use):
+    """The C/D offsets through the limb model: the D-term (h digits of
+    base b_1 over t_1) and the C-term (g digits of base b_2 over t_2 <
+    t_1), digits at +-b/2 only, against cd_sum_plain."""
+    p = _params(q)
+    crs = CRS.create(p, SEED)
+    base_off, t_used, b = ((crs._off_d, p.t_1, p.b_1) if use == "D"
+                           else (crs._off_c, p.t_2, p.b_2))
+    if use == "C":
+        assert t_used < p.t_1
+    h = b // 2
+    rng = np.random.default_rng(q % 997 + t_used)
+    x = rng.choice([-h, h], (t_used, p.r, p.r, p.d))
+    stream = _tri_stream(torch.from_numpy(x if q > Q_SMALL else x % q), p)
+    n_limbs = cd_cuda.stream_digit_limbs(crs, b)
+    assert n_limbs == (1 if q == Q_SMALL else 2)
+    u1_cuda.check_digit_range(stream, q, n_limbs)
+
+    def draw(l0, l1):
+        lin = torch.arange(l0, l1)
+        oc = (lin // t_used) * p.t_1 + lin % t_used
+        offs = (base_off + oc[None, :, None] * (p.kappa_2 * p.d)
+                + (torch.arange(p.kappa_2) * p.d)[:, None, None]
+                + torch.arange(p.d)[None, None, :])
+        return crs.draw(offs)
+
+    want = cd_cuda.cd_sum_plain(crs, stream, base_off, t_used)
+    got = limb_model(draw, stream.reshape(-1, p.d), p.kappa_2, q, n_limbs)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("q", [Q_SMALL, Q_BIG])
+def test_cd_digit_range_check_raises(q):
+    """The C/D wrapper's check, on the CPU: the limb count of the C-term's
+    base, and the raise after a launch whose kernel flagged a digit one
+    beyond what those limbs hold (the flag a CPU tensor here)."""
+    p = _params(q)
+    crs = CRS.create(p, SEED)
+    n_limbs = cd_cuda.stream_digit_limbs(crs, p.b_2)
+    assert n_limbs == u1_cuda.digit_limbs(p.b_2)
+    top = u1_cuda.limb_cover(n_limbs)
+    stream = torch.zeros((3, p.t_2, p.d), dtype=torch.int64)
+    stream[1, 0, 5] = top
+    clear, flagged = torch.zeros(1, dtype=torch.int32), \
+        torch.ones(1, dtype=torch.int32)
+    u1_cuda.raise_if_flagged(clear, stream % q, q, n_limbs)
+    stream[2, 1, 7] = -top - 1
+    with pytest.raises(ValueError, match="beyond"):
+        u1_cuda.raise_if_flagged(flagged, stream % q, q, n_limbs)
+    with pytest.raises(ValueError, match="no u1 kernel mode"):
+        cd_cuda.stream_digit_limbs(crs, 1 << 40)
+
+
 @pytest.mark.parametrize("q, n_limbs", [(Q_SMALL, 1), (Q_BIG, 1),
                                         (Q_BIG, 2), (Q_TOP, 3), (Q_BIG, 4)])
 def test_digit_range_check(q, n_limbs):
@@ -220,12 +281,14 @@ def test_digit_limbs_cover(b):
 
 @pytest.mark.parametrize("rows, L", [(256, 24576), (256, 16384), (16, 37440),
                                      (16, 10800), (128, 1024), (16, 720),
-                                     (12, 5)])
+                                     (12, 5), (16, 211770), (16, 45900),
+                                     (256, 816), (24, 100)])
 def test_launch_shape_covers_stream(rows, L):
-    warps, splits, per = u1_cuda.launch_shape(rows, L)
-    assert 1 <= warps <= 8 and per % 16 == 0
+    tiles, groups, splits, per = u1_cuda.launch_shape(rows, L)
+    assert 1 <= tiles * groups <= 8 and per % 16 == 0
+    assert groups == 1 or tiles <= 4
     assert (splits - 1) * per < L <= splits * per
-    assert -(-rows // (8 * warps)) * warps * 8 >= rows
+    assert -(-rows // (8 * tiles)) * tiles * 8 >= rows
 
 
 @pytest.mark.cuda
