@@ -112,8 +112,8 @@ class Work:
     def cuda_core_ms(self) -> float:
         """The same bound with the multiply-adds on the CUDA cores
         (mac_ops int32 operations each: one IMAD for a product below 2^31,
-        more for a wider one), the design of the Ajtai and C/D kernels;
-        the u1 kernel takes them on int8 tensor cores."""
+        more for a wider one), printed beside the bound: the commitment
+        kernels take them on int8 tensor cores."""
         return max(self.nbytes / HBM_BYTES_PER_S,
                    (self.int32_ops + self.macs * self.mac_ops)
                    / INT32_OPS_PER_S) * 1e3
@@ -207,22 +207,23 @@ def _kernel_cases(p, seed: int):
         x = signed(base // 2, shape)
         return _t(x if big else x % p.q)
 
-    def work(rows: int, L: int, nrhs: int, max_rhs: int) -> Work:
-        """One ring-stream contraction: digits in and result out; one
+    def work(rows: int, L: int, nrhs: int, max_rhs: int,
+             lp: int | None = None) -> Work:
+        """One stream contraction: digits in and result out; one
         Threefry block per CRS entry and d multiply-adds per entry and
-        right-hand side (entries below max_rhs in size).  Limb products of
-        the direct product with no CRT: the entry's limbs (a residue below
-        q at small q; centred, at most q/2, at big q, as the kernel takes
-        it) against the operand's.  At big q the Pallas kernel does more,
-        per CRT prime 2 limbs of the entry's residue against the
-        operand's; that count is printed beside the bound."""
+        right-hand side (entries below max_rhs in size).  Limb products:
+        ``lp`` where given (the Ajtai kernel's own: its entry limbs times
+        its witness limbs), else those of the direct product with no CRT,
+        the entry's limbs (a residue below q at small q; centred, at most
+        q/2, at big q) against the operand's.  At big q the Pallas kernel
+        does more, per CRT prime 2 limbs of the entry's residue against
+        the operand's; that count is printed beside the bound."""
         entries = rows * L * d
         tpu_lp = None
         if big:
-            lp = limbs(p.q // 2) * limbs(max_rhs)
             tpu_lp = ntt.plan_for(p).n_primes * 2 * limbs(max_rhs)
-        else:
-            lp = limbs(p.q - 1) * limbs(max_rhs)
+        if lp is None:
+            lp = limbs(p.q // 2 if big else p.q - 1) * limbs(max_rhs)
         return Work(8 * d * nrhs * (L + rows), entries * THREEFRY_OPS,
                     entries * d * nrhs, lp, BIG_MAC_OPS if big else 1,
                     tpu_lp)
@@ -239,15 +240,16 @@ def _kernel_cases(p, seed: int):
     g_str = _tri_stream(digits(p.b_2, (p.t_2, p.r, p.r, p.d)), p)
     h_str = _tri_stream(digits(p.b_1, (p.t_1, p.r, p.r, p.d)), p)
     n_tri = p.r * (p.r + 1) // 2
+    aj_lp = ajtai_cuda.entry_limbs(p.q) * ajtai_cuda.witness_limbs(p.q)
     return [
         (ajtai_cuda, "ajtai r_eff=r",
          lambda: ajtai_cuda.ajtai_commit(crs, w),
          lambda: ajtai_cuda.ajtai_commit_plain(crs, w),
-         work(p.kappa, p.n, p.r, w_max)),
+         work(p.kappa, p.n, p.r, w_max, aj_lp)),
         (ajtai_cuda, "ajtai r_eff=1",
          lambda: ajtai_cuda.ajtai_commit(crs, w[:1]),
          lambda: ajtai_cuda.ajtai_commit_plain(crs, w[:1]),
-         work(p.kappa, p.n, 1, w_max)),
+         work(p.kappa, p.n, 1, w_max, aj_lp)),
         (u1_cuda, "u1 B-term",
          lambda: u1_cuda.u1_bterm(crs, t_dig),
          lambda: u1_cuda.u1_bterm_plain(crs, t_dig),
@@ -333,15 +335,19 @@ def _rows(x: torch.Tensor) -> int:
     return x.numel() // x.shape[-1]
 
 
-def phase_polymul() -> dict:
-    """Kernel 1 against its plain versions on the card: BASELINE.json
-    config 2 (10^5 products, coefficient operands) and 99,999 products (a
-    partial final block), the fixed-operand serving shape (65,536 products
-    against bhat (P, 1, 64)), random canonical per-prime residues over
-    65,531 rows (Garner beyond the image of the forward transform, and a
-    partial final block), and the ring products of the 2^14 -R path
-    (FoldedState.phi_alpha_modq and fold at n = r = 16).  Bit-equality
-    required.  Returns the config-2 case's numbers for the kernels line."""
+def polymul_cases() -> tuple[list, dict]:
+    """Kernel 1's cases on the card, (label, products, kernel fn, plain fn,
+    Work) each, and its yardsticks: BASELINE.json config 2 (10^5 products,
+    coefficient operands) and 99,999 products (a partial final block), the
+    fixed-operand serving shape (65,536 products against bhat (P, 1, 64)),
+    the same fixed operand over 65,531 rows (a partial final tile), random
+    canonical per-prime residues over 65,531 rows (a per-row bhat; Garner
+    beyond the image of the forward transform), and the ring products of
+    the 2^14 -R path (FoldedState.phi_alpha_modq and fold at n = r = 16).
+    Yardsticks: {"conv1d": (call, check) of config 2, "matmul": (call,
+    check) of the serving shape}, each check True when the call's result
+    mod q equals the kernel's.  Also run by kernel_times.py against a
+    parent checkout's package: it uses only the wrappers' public names."""
     from labrador_tpu_torch.ops import ntt, polymul_cuda
     from labrador_tpu_torch.ops.ring_stream import circulant
     from labrador_tpu_torch.params import LabradorParams
@@ -389,6 +395,8 @@ def phase_polymul() -> dict:
         coef_case("config 2: 10^5 products", a, b),
         coef_case(f"config 2 tail: {POLY_TAIL} products", a_t, b_t),
         bhat_case("serving: bhat (P, 1, 64)", a_s, bhat_fixed),
+        bhat_case(f"bhat (P, 1, 64), {POLY_SERVING_TAIL} rows", a_st,
+                  bhat_fixed),
         bhat_case(f"bhat random residues, {POLY_SERVING_TAIL} rows", a_st,
                   bhat_rand),
         coef_case("-R a17 * cphi: (d,) x (16, d)", vec, cphi),
@@ -396,6 +404,32 @@ def phase_polymul() -> dict:
         coef_case("-R fold cc: (16, 1, d) x (1, 16, d)", c[:, None],
                   c[None, :]),
     ]
+    conv_call, conv_result = _negacyclic_conv1d(a, b)
+    # the serving case's yardstick: one float64 matmul of the rows by the
+    # 64 x 64 negacyclic matrix of b (exact: 64 q^2 < 2^53), b taken
+    # back from bhat and its matrix built once, outside the timed call
+    nb = circulant(ntt.ntt_inv_modq(bhat_fixed, plan)[0]).to(torch.float64)
+    a_f = a_s.to(torch.float64)
+
+    def serving_mm():
+        return torch.matmul(a_f, nb)
+
+    yard = {
+        "conv1d": (conv_call,
+                   lambda: torch.equal(conv_result(q), coef(a, b, plan))),
+        "matmul": (serving_mm, lambda: torch.equal(
+            torch.remainder(serving_mm().to(torch.int64), q),
+            bh(a_s, bhat_fixed, plan))),
+    }
+    return cases, yard
+
+
+def phase_polymul() -> dict:
+    """Kernel 1 against its plain versions on the card at the cases of
+    ``polymul_cases``; bit-equality required.  Times each beside its bound,
+    and the yardsticks.  Returns the config-2 case's numbers for the
+    kernels line."""
+    cases, yard = polymul_cases()
     stats: dict = {"max_abs_err": 0}
     for label, count, kern, plain, work in cases:
         got, want = kern(), plain()
@@ -410,33 +444,21 @@ def phase_polymul() -> dict:
         log(f"kernel polymul {label:38s} {str(tuple(got.shape)):14s} "
             f"bit-equal (tolerance 0)  kernel {ms:.4f} ms = "
             f"{count / ms * 1e3:.4g} products/s  plain {plain_ms:.4f} ms  "
-            f"{work.describe()}")
+            f"{work.describe()}; at {work.bound()[0] / ms:.1%} of the bound")
         if "ms" not in stats:
             bound_ms, bound_by = work.bound()
             stats.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by)
-    call, result = _negacyclic_conv1d(a, b)
-    if not torch.equal(result(q), coef(a, b, plan)):
-        raise AssertionError("the conv1d yardstick disagrees with kernel 1")
-    stats["library_ms"] = cuda_ms(call, 5)
+    for name, (call, check) in yard.items():
+        if not check():
+            raise AssertionError(f"the {name} yardstick disagrees with "
+                                 f"kernel 1")
+    stats["library_ms"] = cuda_ms(yard["conv1d"][0], 5)
     log(f"kernel polymul config 2 yardstick: one float64 grouped conv1d "
         f"(exact integer products, no mod q) {stats['library_ms']:.4f} ms")
-    # the serving case's yardstick: one float64 matmul of the rows by the
-    # 64 x 64 negacyclic matrix of b (exact: 64 q^2 < 2^53), b taken
-    # back from bhat and its matrix built once, outside the timed call
-    b_fixed = ntt.ntt_inv_modq(bhat_fixed, plan)[0]
-    nb = circulant(b_fixed).to(torch.float64)
-    a_f = a_s.to(torch.float64)
-
-    def serving_mm():
-        return torch.matmul(a_f, nb)
-
-    if not torch.equal(torch.remainder(serving_mm().to(torch.int64), q),
-                       bh(a_s, bhat_fixed, plan)):
-        raise AssertionError("the bhat yardstick disagrees with kernel 1")
     log(f"kernel polymul serving yardstick: one float64 matmul "
-        f"{tuple(a_f.shape)} @ {tuple(nb.shape)} (exact integer products, no "
-        f"mod q) {cuda_ms(serving_mm, 20):.4f} ms")
+        f"({POLY_SERVING}, 64) @ (64, 64) (exact integer products, no mod q) "
+        f"{cuda_ms(yard['matmul'][0], 20):.4f} ms")
     return stats
 
 

@@ -1,5 +1,6 @@
-"""Times the commitment kernels (Ajtai, the u1 B-term, the C/D sums) of the
-checkout in the current directory on one CUDA card, beside their bounds.
+"""Times the kernels of the checkout in the current directory on one CUDA
+card, beside their bounds: the commitment kernels (Ajtai, the u1 B-term,
+the C/D sums) and kernel 1 (the ring product, both variants).
 
 Usage, from the root of a checkout (it imports that checkout's
 ``chip_smoke.py`` and package, so two commits are compared in one run on
@@ -14,17 +15,25 @@ mean of ``--reps`` wrapper calls after one warm-up, by CUDA events; the
 second ("launch") is the same with the wrappers' operand checks
 (``check_digit_range``, ``check_big_operand``, ``raise_if_flagged``: a
 device sync each) replaced by no-ops, the kernels' own time and their
-launches.  Prints one
-line per kernel and shape, the card's name and power limit, and a last
-line of JSON.  Imports nothing of JAX.
+launches.  Kernel 1 at the shapes of
+``polymul_cases`` in this script's own ``chip_smoke.py`` (config 2, the
+fixed-operand serving shape, per-row bhat, the -R ring products), run on
+the checkout's package, with its two yardsticks (a float64 grouped conv1d,
+a float64 matmul against b's negacyclic matrix).  Prints one line per
+kernel and shape, the card's name and power limit, and a last line of
+JSON.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import sys
+from pathlib import Path
+
+import torch
 
 sys.path.insert(0, os.getcwd())
 
@@ -64,6 +73,40 @@ SHAPES = {
 }
 
 
+def _own_chip_smoke():
+    """The chip_smoke.py beside this script (the checkout's may predate
+    ``polymul_cases``); its functions import the package from the cwd."""
+    spec = importlib.util.spec_from_file_location(
+        "kernel_times_chip_smoke", Path(__file__).resolve().parent /
+        "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def polymul_rows(reps: int) -> list[dict]:
+    cases, yard = _own_chip_smoke().polymul_cases()
+    rows = []
+    for label, count, kern, plain, work in cases:
+        got, want = kern(), plain()
+        if not torch.equal(got, want):
+            raise AssertionError(f"polymul {label}: kernel != plain")
+        ms = cs.cuda_ms(kern, reps)
+        bound_ms, bound_by = work.bound()
+        rows.append({"shape": label, "kernel": "polymul", "ms": ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+        print(f"polymul {label:40s} {ms:.4f} ms  bound {bound_ms:.4f} ms "
+              f"({bound_by}), at {bound_ms / ms:.1%} of it", flush=True)
+    for name, (call, check) in yard.items():
+        if not check():
+            raise AssertionError(f"the {name} yardstick disagrees")
+        ms = cs.cuda_ms(call, reps)
+        rows.append({"shape": f"yardstick {name}", "kernel": "library",
+                     "ms": ms})
+        print(f"polymul yardstick {name:30s} {ms:.4f} ms", flush=True)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=20)
@@ -81,6 +124,7 @@ def main() -> int:
             print(f"{shape:15s} {label:16s} {ms:.4f} ms (launch {lms:.4f} "
                   f"ms)  bound {bound_ms:.4f} ms ({bound_by}), at "
                   f"{bound_ms / lms:.1%} of it", flush=True)
+    rows += polymul_rows(args.reps)
     print(json.dumps({"card": card, "checkout": os.getcwd(), "rows": rows}))
     return 0
 

@@ -126,10 +126,11 @@ __device__ __forceinline__ void pack_entry_limbs(const uint64_t (&e)[4],
 }
 
 // res += sum_w 2^(8w) acc[w] mod q (in (-q, q) at small q, [0, q) at big
-// q); acc = 0.  The bounds are at the top.
-template <int EL, int NW>
-__device__ __forceinline__ void mma_flush(int32_t (&acc)[NW][4][4],
-                                          int64_t (&res)[4][4], int64_t q) {
+// q); acc = 0; MT m-tiles, res int64 or (small q) int32.  The bounds are
+// at the top (and in ajtai.cu).
+template <int EL, int NW, int MT = 4, class R = int64_t>
+__device__ __forceinline__ void mma_flush(int32_t (&acc)[NW][MT][4],
+                                          R (&res)[MT][4], int64_t q) {
   // 2^64 mod q, and cw[w] = 2^(8w) mod q < 2^33 (each term of the big-q
   // sum below is then below 2^64)
   const uint64_t uq = static_cast<uint64_t>(q);
@@ -139,7 +140,7 @@ __device__ __forceinline__ void mma_flush(int32_t (&acc)[NW][4][4],
 #pragma unroll
   for (int w = 1; w < NW; ++w) cw[w] = (cw[w - 1] << 8) % q;
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       if constexpr (EL == 2) {
@@ -147,7 +148,7 @@ __device__ __forceinline__ void mma_flush(int32_t (&acc)[NW][4][4],
 #pragma unroll
         for (int w = 0; w < NW; ++w)
           v += static_cast<int64_t>(acc[w][mt][c]) * (int64_t{1} << (8 * w));
-        res[mt][c] = v % q;
+        res[mt][c] = static_cast<R>(v % q);
       } else {
         __int128 v = res[mt][c];
 #pragma unroll

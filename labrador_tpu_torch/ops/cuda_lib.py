@@ -37,14 +37,14 @@ _U64 = ctypes.c_uint64
 # cudaError_t of its launches.
 _SIGNATURES = {
     "ajtai_commit_launch": (_P, _P, _P, _I, _I, _I, _I64, _U64, _U32, _U32, _I,
-                            _P),
+                            _I, _I, _I, _I, _P),
     "u1_bterm_launch": (_P, _P, _P, _P, _I, _I, _I, _I64, _U64, _U64, _U32,
                         _U32, _I, _I, _I, _I, _I, _P),
     "cd_sum_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I64, _U64, _U64, _U32,
                       _U32, _I, _I, _I, _I, _I, _P),
     "polymul_coef_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _P),
     "polymul_bhat_launch": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I,
-                            _I64, _P),
+                            _P),
     "cuda_error_string": (_I,),
 }
 

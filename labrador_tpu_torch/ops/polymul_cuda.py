@@ -28,6 +28,7 @@ for CPU tensors.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import cuda_lib
@@ -134,19 +135,72 @@ def _launch_coef(a: torch.Tensor, b: torch.Tensor, plan) -> torch.Tensor:
     return out
 
 
+def bhat_tables(plan) -> np.ndarray:
+    """The transforms V_p and W_p as the bhat kernel's B fragments: uint32
+    words (2, P, 2, 8, 2, 32, 2) over transform (V, W), prime, k-step s,
+    n-tile, limb (low byte, high byte of the residue), lane (g = lane / 4,
+    t = lane % 4) and fragment register (b0, b1).  Register b_i holds in
+    byte j the limb of T[perm[s][16 i + 4 t + j]][8 nt + g]: the rows in
+    the kernel's K order (``bhat_k_order``)."""
+    P = plan.n_primes
+    perm = bhat_k_order()
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    out = np.zeros((2, P, 2, 8, 2, 32, 2), np.int64)
+    for ti, table in enumerate((plan.V, plan.W)):
+        for s in range(2):
+            rows_t = np.asarray(table, np.int64)[:, perm[s], :]
+            for limb in range(2):
+                lt = (rows_t >> (8 * limb)) & 255
+                for nt in range(8):
+                    for bi in range(2):
+                        k = 16 * bi + 4 * t[:, None] + np.arange(4)[None, :]
+                        vals = lt[:, k, (8 * nt + g)[:, None]]  # (P, 32, 4)
+                        out[ti, :, s, nt, limb, :, bi] = (
+                            vals << (8 * np.arange(4))).sum(-1)
+    return out.astype(np.uint32)
+
+
+def bhat_k_order() -> np.ndarray:
+    """(2, 32): the column of a (and of y) at logical k of k-step s:
+    within a k-step, k = 16 hp + 4 t + 2 pp + e is column 32 s + 16 hp +
+    8 pp + 2 t + e, so a lane's A fragment holds the columns of its C
+    fragments (``csrc/polymul.cu``)."""
+    k = np.arange(32)
+    hp, t, pp, e = k // 16, (k % 16) // 4, (k % 4) // 2, k % 2
+    return np.stack([32 * s + 16 * hp + 8 * pp + 2 * t + e for s in (0, 1)])
+
+
+def bhat_consts(plan) -> list[int]:
+    """The bhat kernel's constants: primes | floor(2^32 / p) (its 32-bit
+    Barrett) | floor((2^64 - 1) / p) (64-bit, for operands outside
+    [-p, p)) | garner_inv (P, P) | m_half_digits | prefix_mod_q | m_mod_q |
+    q | floor(2^32 / q)."""
+    pr = [int(p) for p in plan.primes]
+    return [*pr, *[(1 << 32) // p for p in pr],
+            *[((1 << 64) - 1) // p for p in pr],
+            *[int(x) for x in plan.garner_inv.reshape(-1)],
+            *[int(x) for x in plan.m_half_digits],
+            *[int(x) for x in plan.prefix_mod_q], int(plan.m_mod_q),
+            plan.q, (1 << 32) // plan.q]
+
+
 def _kernel_tables(plan, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(V | W as (2, P, d, d) int32, Garner constants int64) on ``device``,
-    cached on the plan: primes | garner_inv (P, P) | m_half_digits |
-    prefix_mod_q | m_mod_q, the layout csrc/polymul.cu reads."""
+    """(``bhat_tables`` as int32 words, ``bhat_consts`` int64) on
+    ``device``, cached on the plan."""
     t = plan.tensors(device)
-    if "polymul_vw" not in t:
-        t["polymul_vw"] = torch.stack([t["V"], t["W"]]).to(
-            torch.int32).contiguous()
-        consts = [*plan.primes, *plan.garner_inv.reshape(-1).tolist(),
-                  *plan.m_half_digits, *plan.prefix_mod_q, plan.m_mod_q]
-        t["polymul_consts"] = torch.tensor(
-            [int(c) for c in consts], dtype=torch.int64, device=device)
-    return t["polymul_vw"], t["polymul_consts"]
+    if "bhat_tables" not in t:
+        t["bhat_tables"] = torch.from_numpy(
+            bhat_tables(plan).view(np.int32)).to(device)
+        t["bhat_consts"] = torch.tensor(bhat_consts(plan), dtype=torch.int64,
+                                        device=device)
+    return t["bhat_tables"], t["bhat_consts"]
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x, or a copy of it where its data is not 16-byte aligned (the kernel
+    reads pairs of int64)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _launch_bhat(a: torch.Tensor, bhat: torch.Tensor, plan) -> torch.Tensor:
@@ -155,6 +209,9 @@ def _launch_bhat(a: torch.Tensor, bhat: torch.Tensor, plan) -> torch.Tensor:
     if bhat.ndim < 2 or bhat.shape[0] != P:
         raise ValueError(f"bhat of shape {tuple(bhat.shape)} lacks the "
                          f"leading prime axis of {P}")
+    if not all((1 << 14) < p < (1 << 15) for p in plan.primes):
+        raise ValueError("the bhat kernel's Garner bounds need every CRT "
+                         "prime in (2^14, 2^15)")
     shape = tuple(torch.broadcast_shapes(a.shape, bhat.shape[1:]))
     if shape[-1] != plan.d:
         raise ValueError(f"operands are not rows of d = {plan.d}")
@@ -164,11 +221,12 @@ def _launch_bhat(a: torch.Tensor, bhat: torch.Tensor, plan) -> torch.Tensor:
         return out
     a2, a_stride = _rows(a, shape, "a")
     b2, b_stride = _rows(bhat, shape, "bhat", lead=(P,))
-    vw, consts = _kernel_tables(plan, a.device)
+    a2, b2 = _aligned(a2), _aligned(b2)
+    tables, consts = _kernel_tables(plan, a.device)
     err = cuda_lib.load().lib.polymul_bhat_launch(
-        a2.data_ptr(), b2.data_ptr(), vw.data_ptr(), consts.data_ptr(),
+        a2.data_ptr(), b2.data_ptr(), tables.data_ptr(), consts.data_ptr(),
         out.data_ptr(), n, a_stride, b_stride, b2.shape[1] * plan.d, P,
-        plan.q, cuda_lib.stream_ptr(a.device))
+        cuda_lib.stream_ptr(a.device))
     cuda_lib.check(err)
     KERNEL.launches += 1
     return out

@@ -8,16 +8,15 @@ one float64 matmul per chunk (``modmath.matmul_mod``, exact).  At big q a
 product of an entry and a centred operand (both up to q/2 ~ 2^31) is
 beyond float64's exact range, so the contraction runs per CRT prime and
 one signed Garner fold (``zq.fold_res_modq``) gives the sum mod q, as the
-JAX package's XLA path does.  This is what ``csrc/threefry.cuh``'s
-ring-stream kernel (Ajtai) and ``csrc/mma_stream.cuh``'s tensor-core
-kernel (u1, C/D) compute; the CPU path and the tests use it, and
-``chip_smoke.py`` holds the kernels against it.  The operands may be
+JAX package's XLA path does.  This is what the tensor-core kernels of
+``csrc/ajtai.cu`` (Ajtai) and ``csrc/mma_stream.cuh`` (u1, C/D) compute;
+the CPU path and the tests use it, and ``chip_smoke.py`` holds the
+kernels against it.  The operands may be
 residues in [0, q) or signed values of magnitude at most q/2 (the big-q
 convention of the JAX package: signed digits and witness); the kernel and
 this version centre them alike.  Also the modulus check of the three
-CUDA wrappers, the ring-stream kernel's launch shape and operand check
-(Ajtai), and the Barrett constant of the kernels' reduction of a Threefry
-word.
+CUDA wrappers, the big-q operand check of the Ajtai wrapper, and the
+Barrett constant of the kernels' reduction of a Threefry word.
 """
 
 from __future__ import annotations
@@ -33,10 +32,6 @@ from .zq import fold_res_modq, is_big, to_res, to_signed_small
 # CRS entries drawn, and circulant entries built, per plain-version chunk
 # (bounds its temporaries)
 _CHUNK_ENTRIES = 1 << 22
-# blocks the CUDA launch aims for: a few waves over the H100's 132 SMs
-_TARGET_BLOCKS = 4 * 132
-_LC = 8            # ring elements per kernel chunk (csrc/threefry.cuh LC)
-_GROUPS = 4        # right-hand sides per block (csrc/threefry.cuh GROUPS)
 
 
 def circulant(v: torch.Tensor) -> torch.Tensor:
@@ -98,11 +93,11 @@ def check_q(q: int, d: int) -> None:
 
 
 def check_big_operand(x: torch.Tensor, q: int, name: str) -> None:
-    """At big q the kernel's int64 products hold for operands in
-    [-q/2, q): residues or signed values, centred alike.  Raise on one
-    outside (one device sync)."""
+    """At big q the Ajtai kernel takes operands in [-q/2, q): residues or
+    signed values, centred alike to |x| <= q/2, which its five signed
+    8-bit limbs hold.  Raise on one outside (one device sync)."""
     if is_big(q) and x.numel():
-        lo, hi = int(torch.min(x)), int(torch.max(x))
+        lo, hi = torch.stack(torch.aminmax(x)).tolist()
         if lo < -(q // 2) or hi >= q:
             raise ValueError(f"{name} has values in [{lo}, {hi}], outside "
                              f"[-q/2, q) for the big-q kernel")
@@ -114,10 +109,3 @@ def barrett_m(q: int) -> int:
     ``barrett_mod``, where the bound is proved)."""
     return ((1 << 64) - 1) // q
 
-
-def launch_shape(rows: int, nrhs: int, L: int) -> int:
-    """Splits of the l stream over grid.y for a (rows, splits, rhs groups)
-    grid of about _TARGET_BLOCKS blocks."""
-    zb = 1 if nrhs == 1 else -(-nrhs // _GROUPS)
-    want = -(-_TARGET_BLOCKS // (rows * zb))
-    return max(1, min(want, -(-L // _LC), 65535))

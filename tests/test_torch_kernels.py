@@ -8,7 +8,8 @@ the fused Pallas polymul and the XLA transforms: past one Pallas block
 (padding), with two-sided broadcasting, and with a fixed, a per-row and a
 random-residue evaluation-domain operand.  On a CUDA machine, also each
 CUDA kernel against its plain version, kernels 2-4 in both their modes (the
-big-q plain versions are held against JAX in tests/test_torch_bigq.py).
+big-q plain versions are held against JAX in tests/test_torch_bigq.py),
+and the tensor-core bhat and Ajtai kernels on edge inputs.
 
 JAX is imported only by the ``jx`` fixture, so on a card machine without
 JAX ``python -m pytest tests/test_torch_kernels.py -m cuda --noconftest``
@@ -369,3 +370,70 @@ def test_cuda_stream_kernels_raise_beyond_limbs(q):
     h_str[h_str == over] = over - 1                  # within the limb
     assert torch.equal(cd_cuda.cd_sum(crs, h_str, crs._off_d, p.t_1),
                        cd_cuda.cd_sum_plain(crs, h_str, crs._off_d, p.t_1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fixed", "fixed_edges", "per_row", "edges",
+                                  "signed"])
+@pytest.mark.parametrize("q", [8191, 32513])
+def test_cuda_bhat_tensor_cores_match_plain(q, kind):
+    """The tensor-core bhat kernel against its plain version: a fixed and
+    a per-row operand, 0 and p - 1 in a and in bhat, signed and
+    out-of-range int64 a; 1,001 rows (a partial last tile) and one row; at
+    q = 8191 (3 CRT primes) and q = 32513 (4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    plan = tntt.make_plan(q) if q != POLY_P.q else tntt.plan_for(POLY_P)
+    P, d = plan.n_primes, plan.d
+    pv = np.asarray(plan.primes).reshape(P, 1, 1)
+    rng = np.random.default_rng(q + len(kind))
+    for n in (1001, 1):
+        a = rng.integers(0, q, (n, d))
+        rows = 1 if kind.startswith("fixed") else n
+        bhat = rng.integers(0, 1 << 62, (P, rows, d)) % pv
+        if kind.endswith("edges"):
+            a[: (n + 1) // 2] = rng.choice([0, q - 1], ((n + 1) // 2, d))
+            bhat = rng.choice([0, 1], (P, rows, d)) * (pv - 1)
+        if kind == "signed":
+            a = rng.integers(-(1 << 62), 1 << 62, (n, d))
+            a[0, :4] = [-(1 << 63), (1 << 63) - 1, -q + 1, -1]
+        ca, cb = _t(a).to("cuda"), _t(bhat).to("cuda")
+        got = polymul_cuda.negacyclic_polymul_bhat(ca, cb, plan)
+        want = polymul_cuda.negacyclic_polymul_bhat_plain(ca, cb, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (kind, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r_eff", [1, 3, 16])
+@pytest.mark.parametrize("q_start", [None, (1 << 32) - 1, (1 << 33) - 9],
+                         ids=["q8191", "q4294967311", "q8589934583"])
+def test_cuda_ajtai_tensor_cores_match_plain(q_start, r_eff):
+    """The tensor-core Ajtai kernel against its plain version at r_eff in
+    {1, 3, 16} (one vector, a group not filled, several groups), kappa =
+    24 (3 row tiles) and n = 37 ring elements (a partial chunk); at big q a
+    witness at +-q/2 and in the band above what four signed limbs hold,
+    and residues up to q - 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from labrador_tpu_torch.params import LabradorParams as TParams
+    extra = {} if q_start is None else dict(q_start=q_start,
+                                            exact_digits=True)
+    p = TParams(n=37, r=16, kappa_override=24, **extra)
+    crs = TCRS.create(p, SEED + r_eff)
+    rng = np.random.default_rng(r_eff)
+    shape = (r_eff, p.n, p.d)
+    if q_start is None:
+        w = rng.integers(0, p.q, shape)
+        w.reshape(-1)[:4] = [0, p.q - 1, p.q // 2, p.q // 2 + 1]
+    else:
+        h, four = p.q // 2, 127 * (256**4 - 1) // 255
+        w = rng.integers(-h, h + 1, shape)
+        band = rng.integers(four + 1, h + 1, w.size // 4)
+        w.reshape(-1)[: band.size] = band * rng.choice([-1, 1], band.size)
+        w.reshape(-1)[-5:] = [h, -h, four + 1, -four - 1, p.q - 1]
+    w = _t(w).to("cuda")
+    got = ajtai_cuda.ajtai_commit(crs, w)
+    want = ajtai_cuda.ajtai_commit_plain(crs, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

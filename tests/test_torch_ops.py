@@ -362,11 +362,12 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize(
     "path", sorted((ROOT / "labrador_tpu_torch").rglob("*.py"))
-    + [ROOT / "chip_smoke.py", ROOT / "kernel_times.py"],
+    + [ROOT / "chip_smoke.py", ROOT / "kernel_times.py",
+       ROOT / "bhat_parts.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
-    """No module of the port, and neither chip_smoke.py nor
-    kernel_times.py, imports JAX or any module of the JAX package."""
+    """No module of the port, and none of chip_smoke.py, kernel_times.py
+    and bhat_parts.py, imports JAX or any module of the JAX package."""
     for mod in _imports(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "flax", "labrador_tpu"), \
