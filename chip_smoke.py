@@ -24,6 +24,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -41,7 +42,7 @@ REAL = dict(n=16, r=16, kappa=256)       # BASELINE.json config 3
 BIG_Q = dict(q_start=(1 << 32) - 1, exact_digits=True)   # cli --big-q
 TIMED_RUNS = 3
 POLY_PRODUCTS = 100_000                  # BASELINE.json config 2
-POLY_TAIL = 99_999                       # not a multiple of 4 (COEF_ROWS)
+POLY_TAIL = 99_999                       # not a multiple of 32 (COEF_TILE)
 POLY_SERVING = 65_536                    # bench.py's fixed-operand batch
 POLY_SERVING_TAIL = 65_531               # not a multiple of 8 (BHAT_ROWS)
 
@@ -153,9 +154,23 @@ def phase_build() -> None:
     loaded = cuda_lib.load()
     log(f"build: {time.perf_counter() - t0:.2f}s "
         f"(library {cuda_lib.source_hash()})")
+    kernel = ""
     for line in loaded.ptxas_log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = _kernel_name(line)
         if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+            log(f"  ptxas {kernel}: {line.strip()}")
+
+
+def _kernel_name(line: str) -> str:
+    """The kernel's name and first template argument in a ptxas line, out
+    of the mangled name (a length-prefixed identifier ending in kernel)."""
+    for m in re.finditer(r"\d+", line):
+        end = m.end() + int(m[0])
+        if line[m.end():end].endswith("kernel"):
+            arg = re.match(r"ILi(\d+)E", line[end:])
+            return line[m.end():end] + (f"<{arg[1]}>" if arg else "")
+    return ""
 
 
 def _t(a) -> torch.Tensor:
@@ -424,11 +439,42 @@ def polymul_cases() -> tuple[list, dict]:
     return cases, yard
 
 
+def coef_edge_cases() -> list:
+    """Edge inputs of kernel 1's coefficient variant, (label, plan, a, b)
+    on the card: the input kinds of ``tests/test_torch_coef_kernel.py``
+    (the same as its ``cuda`` test's) at q = 8191 (no flush) and q = 32513
+    (a flush every 8 terms): int64 extremes and values outside [-q, q)
+    (the 64-bit Barrett path), zero rows, one product, a partial tile,
+    each operand fixed (row stride 0), the fold's outer broadcast, and
+    operands the wrapper copies (transposed, off the 16-byte alignment, a
+    broadcast over three axes).  Held against the plain version of the
+    operands' residues mod q: the plain version takes |x| < q, beyond
+    which its CRT transforms wrap."""
+    import importlib.util
+
+    from labrador_tpu_torch.ops import ntt
+
+    spec = importlib.util.spec_from_file_location(
+        "coef_kernel_tests", ROOT / "tests" / "test_torch_coef_kernel.py")
+    tests = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tests)
+    cases = []
+    for q in (8191, 32513):
+        plan = ntt.make_plan(q)
+        for kind in tests.KINDS:
+            a, b = tests.coef_inputs(
+                q, kind, np.random.default_rng(q + len(kind)), "cuda")
+            cases.append((f"q {q}: {kind}", plan, a, b))
+    return cases
+
+
 def phase_polymul() -> dict:
     """Kernel 1 against its plain versions on the card at the cases of
     ``polymul_cases``; bit-equality required.  Times each beside its bound,
     and the yardsticks.  Returns the config-2 case's numbers for the
     kernels line."""
+    from labrador_tpu_torch.ops import polymul_cuda
+
     cases, yard = polymul_cases()
     stats: dict = {"max_abs_err": 0}
     for label, count, kern, plain, work in cases:
@@ -449,6 +495,17 @@ def phase_polymul() -> dict:
             bound_ms, bound_by = work.bound()
             stats.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by)
+    edges = coef_edge_cases()
+    for label, plan, a, b in edges:
+        got = polymul_cuda.negacyclic_polymul(a, b, plan)
+        want = polymul_cuda.negacyclic_polymul_plain(
+            torch.remainder(a, plan.q), torch.remainder(b, plan.q), plan)
+        _sync()
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"polymul edge case {label}: kernel != "
+                                 f"plain")
+    log(f"kernel polymul coefficient edge cases: {len(edges)} "
+        f"bit-equal (tolerance 0)")
     for name, (call, check) in yard.items():
         if not check():
             raise AssertionError(f"the {name} yardstick disagrees with "

@@ -19,7 +19,9 @@ launches.  Kernel 1 at the shapes of
 ``polymul_cases`` in this script's own ``chip_smoke.py`` (config 2, the
 fixed-operand serving shape, per-row bhat, the -R ring products), run on
 the checkout's package, with its two yardsticks (a float64 grouped conv1d,
-a float64 matmul against b's negacyclic matrix).  Prints one line per
+a float64 matmul against b's negacyclic matrix) and a calibration of the
+memory rate for config 2's bytes (one torch.add of two int64 (10^5, 64)
+tensors into a third: the same reads and writes).  Prints one line per
 kernel and shape, the card's name and power limit, and a last line of
 JSON.  Imports nothing of JAX.
 """
@@ -104,6 +106,15 @@ def polymul_rows(reps: int) -> list[dict]:
         rows.append({"shape": f"yardstick {name}", "kernel": "library",
                      "ms": ms})
         print(f"polymul yardstick {name:30s} {ms:.4f} ms", flush=True)
+    # what the card's memory delivers for config 2's traffic: two int64
+    # (10^5, 64) tensors read, one written, by one elementwise add
+    x = torch.zeros((cs.POLY_PRODUCTS, 64), dtype=torch.int64, device="cuda")
+    y, o = torch.ones_like(x), torch.empty_like(x)
+    ms = cs.cuda_ms(lambda: torch.add(x, y, out=o), reps)
+    rows.append({"shape": "same bytes as config 2: torch.add",
+                 "kernel": "calibration", "ms": ms})
+    print(f"polymul same bytes as config 2 (torch.add)   {ms:.4f} ms = "
+          f"{3 * x.numel() * 8 / ms / 1e9:.3f} TB/s", flush=True)
     return rows
 
 

@@ -8,14 +8,44 @@
 // here.  Two variants, both writing residues in [0, q):
 //
 // polymul_coef   out[n] = a[n] (*) b[n] mod q, both in the coefficient
-//   domain.  An exact int64 schoolbook: the operands are reduced to
-//   [0, q) first, each product a_i * b_j < q^2 < 2^30 fits int32, and a
-//   64-term sum |sum| < 64 q^2 < 2^36 is exact in int64; one modulo at the
-//   end.  This is the same residue as the CRT route (transform per prime,
-//   pointwise product, inverse, Garner), which is exact for |a|, |b| < q,
-//   at about a twelfth of its multiply-adds.  The negacyclic sign is folded
-//   into a doubled copy of b in shared memory, ext[m] = m >= 64 ? b[m-64]
-//   : -b[m], so (a (*) b)[k] = sum_i a[i] * ext[k - i + 64], branch-free.
+//   domain.  An exact schoolbook: 4,096 multiply-adds a product against
+//   1,536 bytes (a and b in, out back, int64), the same residue as the CRT
+//   route (transform per prime, pointwise product, inverse, Garner) at
+//   about a twelfth of its multiply-adds.  What bounds it on the H100: the
+//   bytes (0.0459 ms for 10^5 products at 3.35 TB/s) once each
+//   multiply-add is one IMAD (0.0245 ms at 64 IMADs a clock and SM); no
+//   operand is shared across products, so the tensor cores have nothing
+//   to amortise.  Design (polymul_coef_kernel):
+//   * the operands are centred residues, |x| <= h = floor(q / 2): a value
+//     in [-q, q) takes one conditional add, any other int64 the 64-bit
+//     Barrett reduction of res_mod; no 64-bit `%` or division anywhere;
+//   * int32 accumulators, one IMAD a multiply-add: a product is at most
+//     h^2, so F terms sum exactly in int32 for F h^2 < 2^31.  The wrapper
+//     picks the flush length F in {64, 32, 16, 8} per q (64 for q <=
+//     11585, so q = 8191 never flushes; 8 at P_MAX = 32513), checked by
+//     the launcher below; at each flush x = sum + S (S a multiple of q
+//     above F h^2, 2 F h^2 + q <= 2^32) goes through barrett32;
+//   * register tiling: 8 threads a product, 8 consecutive outputs a
+//     thread.  The negacyclic sign is folded into a doubled copy of b,
+//     ext[m] = m >= 64 ? b[m-64] : -b[m], so (a (*) b)[k] = sum_i a[i]
+//     ext[k - i + 64]; the thread's window of ext slides down by one a
+//     step and stays in registers through the unrolled loop, refilled by
+//     one 16-byte load of 8 int16 residues every 8 steps; a arrives as
+//     16-byte broadcast loads of int32 residues.  Each shared load feeds
+//     32 or more IMADs;
+//   * a persistent grid, two blocks an SM, walks tiles of 32 products: the
+//     next tile's raw int64 rows (32 KB) come in by cp.async, 16 bytes a
+//     thread and 512 bytes a warp instruction, while the current tile is
+//     reduced and multiplied; each warp passes its outputs through shared
+//     memory so that every 16-byte store instruction writes one product's
+//     512 contiguous bytes;
+//   * broadcast by strides: row r = ro n_inner + ri of the output reads
+//     each operand's row at ro outer + ri inner (either stride 0 for a
+//     fixed operand), so the main path's broadcasts are never copied.
+//   Measured on an H100 80GB HBM3 at 700 W (kernel_times.py, PERF.md
+//   section 6): 0.0607 ms for 10^5 products, 76% of the byte bound and 88%
+//   of what one torch.add moving the same bytes takes (0.0535 ms), from
+//   0.1419-0.1425 ms; 64 registers, no spills.
 //
 // polymul_bhat   out[n] = INTT(NTT(a[n]) .* bhat[:, n]) folded mod q, the
 //   second operand given in the evaluation domain, per CRT prime (the
@@ -63,62 +93,23 @@
 //   with no read of a at all it still takes two thirds of its time).
 //
 // Shapes (checked by ops/polymul_cuda.py): rows of 64 int64 coefficients,
-// n rows; an operand that broadcasts one row over all n has row stride 0,
-// else 64.  bhat is (P, n or 1, 64), 1 <= P <= 6 (one instantiation
-// each; another P returns cudaErrorInvalidValue).  Any int64 operand is
-// reduced exactly (a 64-bit Barrett path for values outside [-p, p)).
-// Bounds on the H100: at the main path's shapes the coefficient variant is
-// bound by the bytes it moves (int64 in and out: 3 x 512 B per product)
-// against 4,096 int32 multiply-adds.
+// n rows; the bhat variant reads an operand that broadcasts one row over
+// all n with row stride 0, else 64.  bhat is (P, n or 1, 64), 1 <= P <= 6
+// (one instantiation each; another P returns cudaErrorInvalidValue).  Any
+// int64 operand is reduced exactly (a 64-bit Barrett path for values
+// outside [-p, p)).
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int D = 64;
-constexpr int COEF_ROWS = 4;                     // products per block step
-constexpr int COEF_THREADS = COEF_ROWS * D;
 constexpr int BHAT_WARPS = 8;                    // warps per block
 constexpr int BHAT_THREADS = BHAT_WARPS * 32;
 constexpr int BHAT_TILE = 16;                    // rows of a per warp tile
 constexpr int BUF_STRIDE = 72;                   // u16 per tile row: 64 + 8
 // uint2 fragment words per transform and prime: k-step, n-tile, limb, lane
 constexpr int TABLE_WORDS = 2 * 8 * 2 * 32;
-
-__device__ __forceinline__ int64_t mod_pos(int64_t x, int64_t m) {
-  const int64_t t = x % m;
-  return t < 0 ? t + m : t;
-}
-
-__global__ void __launch_bounds__(COEF_THREADS)
-polymul_coef_kernel(const int64_t* __restrict__ a,
-                    const int64_t* __restrict__ b, int64_t* __restrict__ out,
-                    int64_t n, int64_t a_stride, int64_t b_stride,
-                    int64_t q) {
-  __shared__ int32_t a_sh[COEF_ROWS][D];
-  __shared__ int32_t ext[COEF_ROWS][2 * D];
-  const int r = threadIdx.x / D;
-  const int k = threadIdx.x % D;
-  for (int64_t row0 = static_cast<int64_t>(blockIdx.x) * COEF_ROWS; row0 < n;
-       row0 += static_cast<int64_t>(gridDim.x) * COEF_ROWS) {
-    const int64_t row = row0 + r;
-    int32_t av = 0, bv = 0;
-    if (row < n) {
-      av = static_cast<int32_t>(mod_pos(a[row * a_stride + k], q));
-      bv = static_cast<int32_t>(mod_pos(b[row * b_stride + k], q));
-    }
-    a_sh[r][k] = av;
-    ext[r][k + D] = bv;
-    ext[r][k] = -bv;
-    __syncthreads();
-    const int32_t* e = &ext[r][k + D];              // e[-i] = ext[k - i + D]
-    int64_t acc = 0;
-#pragma unroll 16
-    for (int i = 0; i < D; ++i) acc += a_sh[r][i] * e[-i];   // < 2^30 each
-    if (row < n) out[row * D + k] = mod_pos(acc, q);
-    __syncthreads();
-  }
-}
 
 // x mod p for x < 2^32 and p < 2^31, with m = floor(2^32 / p) from the
 // wrapper (ops/polymul_cuda.py bhat_consts): with 2^32 = m p + rho,
@@ -150,6 +141,225 @@ __device__ __forceinline__ uint32_t res_mod(int64_t x, uint32_t p,
   uint64_t r = u - __umul64hi(u, m64) * p;
   if (r >= p) r -= p;
   return static_cast<uint32_t>(x < 0 && r ? p - r : r);
+}
+
+// ---------------------------------------------------------------------------
+// polymul_coef: the exact schoolbook on the CUDA cores (design at the top).
+// ---------------------------------------------------------------------------
+
+constexpr int COEF_TILE = 32;                    // products per block step
+constexpr int COEF_THREADS = 256;                // 8 a product, 8 outputs each
+constexpr int COEF_STAGES = 2;                   // raw tiles in flight
+constexpr int COEF_A_STRIDE = D + 4;             // int32 per row of a
+constexpr int COEF_EXT = 2 * D;                  // int16 per row of ext
+constexpr size_t COEF_SMEM =
+    COEF_STAGES * 2 * COEF_TILE * D * sizeof(int64_t) +
+    COEF_TILE * COEF_A_STRIDE * sizeof(int32_t) +
+    COEF_TILE * COEF_EXT * sizeof(int16_t);
+static_assert(COEF_THREADS == COEF_TILE * 8, "8 threads a product");
+// at P_MAX = 32513, h = 16256: 8 terms of h^2 sum in int32, 9 do not
+static_assert(8LL * 16256 * 16256 < (1LL << 31) &&
+                  9LL * 16256 * 16256 >= (1LL << 31),
+              "the flush length 8 at P_MAX");
+
+// Row addressing of the flattened broadcast: row r = ro n_inner + ri of
+// the output reads an operand's row at base + ro outer + ri inner.
+struct CoefArgs {
+  int64_t n, n_inner;
+  int64_t a_outer, a_inner, b_outer, b_inner;
+  uint32_t q, m32, shift;                        // barrett32's m, S
+  int32_t h;                                     // floor(q / 2)
+  uint64_t m64;                                  // floor((2^64 - 1) / q)
+};
+
+// 16 bytes global -> shared, asynchronously; zeros where !valid (nothing
+// is read then).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// The raw rows of a and b of one tile into raw[2][COEF_TILE][D]: warp w
+// of W copies rows w, w + W, .., 512 bytes of one row an instruction.
+__device__ __forceinline__ void coef_issue(int64_t* raw,
+                                           const int64_t* __restrict__ a,
+                                           const int64_t* __restrict__ b,
+                                           int64_t tile, const CoefArgs& g) {
+  constexpr int W = COEF_THREADS / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int s = 0; s < COEF_TILE / W; ++s) {
+    const int rr = warp + W * s;
+    const int64_t row = tile * COEF_TILE + rr;
+    const bool valid = row < g.n;
+    // n < 2^31 (the launcher's check): 32-bit division, only where the
+    // broadcast has an outer dimension
+    uint32_t ro = 0, ri = static_cast<uint32_t>(row);
+    if (g.n_inner < g.n && valid) {
+      ro = static_cast<uint32_t>(row) / static_cast<uint32_t>(g.n_inner);
+      ri = static_cast<uint32_t>(row) - ro * static_cast<uint32_t>(g.n_inner);
+    }
+    const int64_t* ga = a + ro * g.a_outer + ri * g.a_inner + 2 * lane;
+    const int64_t* gb = b + ro * g.b_outer + ri * g.b_inner + 2 * lane;
+    cp_async16(raw + rr * D + 2 * lane, valid ? ga : a, valid);
+    cp_async16(raw + (COEF_TILE + rr) * D + 2 * lane, valid ? gb : b, valid);
+  }
+}
+
+// x as its centred residue mod q, in [-h, h]: directly for x in [-q, q),
+// else by res_mod's 64-bit Barrett reduction; then one conditional add or
+// subtraction of q.
+__device__ __forceinline__ int32_t coef_centred(int64_t x, const CoefArgs& g) {
+  const int32_t q = static_cast<int32_t>(g.q);
+  const int32_t r =
+      static_cast<uint64_t>(x) + g.q < 2ull * g.q
+          ? static_cast<int32_t>(x)
+          : static_cast<int32_t>(res_mod(x, g.q, g.m64));
+  return r > g.h ? r - q : (r < -g.h ? r + q : r);
+}
+
+__device__ __forceinline__ uint32_t pack16(int32_t lo, int32_t hi) {
+  return (static_cast<uint32_t>(lo) & 0xFFFFu) | static_cast<uint32_t>(hi)
+                                                     << 16;
+}
+
+// The raw tile as centred residues: a to a_c (int32), b to ext (int16,
+// ext[m] = b[m - 64] for m >= 64, -b[m] below).  Pairs c = tid + 256 s:
+// row c / 32, columns 2 (c % 32) and the next, 16 bytes a thread.
+__device__ __forceinline__ void coef_convert(const int64_t* raw,
+                                             int32_t* a_c, int16_t* ext,
+                                             const CoefArgs& g) {
+#pragma unroll
+  for (int s = 0; s < COEF_TILE * D / 2 / COEF_THREADS; ++s) {
+    const int c = threadIdx.x + COEF_THREADS * s;
+    const int rr = c >> 5, e = 2 * (c & 31);
+    const longlong2 va = *reinterpret_cast<const longlong2*>(raw + rr * D + e);
+    const longlong2 vb =
+        *reinterpret_cast<const longlong2*>(raw + (COEF_TILE + rr) * D + e);
+    const int32_t b0 = coef_centred(vb.x, g), b1 = coef_centred(vb.y, g);
+    *reinterpret_cast<int2*>(a_c + rr * COEF_A_STRIDE + e) =
+        make_int2(coef_centred(va.x, g), coef_centred(va.y, g));
+    *reinterpret_cast<uint32_t*>(ext + rr * COEF_EXT + D + e) = pack16(b0, b1);
+    *reinterpret_cast<uint32_t*>(ext + rr * COEF_EXT + e) = pack16(-b0, -b1);
+  }
+}
+
+// 8 int16 residues (one 16-byte word) as int32.
+__device__ __forceinline__ void unpack8(uint4 w, int32_t* v) {
+  const uint32_t x[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = static_cast<int16_t>(x[k] & 0xFFFFu);
+    v[2 * k + 1] = static_cast<int32_t>(x[k]) >> 16;
+  }
+}
+
+// Outputs 8t .. 8t + 7 of the product in row pr of the tile, in [0, q).
+// At step i = 8j + s the thread needs ext[8t + 64 - i + r], r < 8: buf[8 -
+// s + r] with buf[0..7] ext's group t + 7 - j and buf[8..15] group t + 8 -
+// j (each group 8 aligned int16, one 16-byte load).  Every F steps the
+// int32 sums (|sum| <= F h^2 < 2^31) are shifted by S and reduced.
+template <int F>
+__device__ __forceinline__ void coef_product(const int32_t* a_c,
+                                             const int16_t* ext, int pr,
+                                             int t, const CoefArgs& g,
+                                             uint32_t (&res)[8]) {
+  const int32_t* ap = a_c + pr * COEF_A_STRIDE;
+  const uint4* ep = reinterpret_cast<const uint4*>(ext + pr * COEF_EXT);
+  int32_t buf[16], acc[8];
+  uint32_t tot[8];
+  unpack8(ep[t + 8], buf + 8);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) acc[r] = 0, tot[r] = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    unpack8(ep[t + 7 - j], buf);
+    const int4 a0 = *reinterpret_cast<const int4*>(ap + 8 * j);
+    const int4 a1 = *reinterpret_cast<const int4*>(ap + 8 * j + 4);
+    const int32_t av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) acc[r] += av[s] * buf[8 - s + r];
+      if (F < D && (8 * j + s + 1) % F == 0) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          tot[r] += barrett32_lazy(static_cast<uint32_t>(acc[r]) + g.shift,
+                                   g.q, g.m32);
+          acc[r] = 0;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) buf[8 + r] = buf[r];
+  }
+  // F = 64: one shifted sum; else at most 8 lazy residues, below 16 q
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    res[r] = barrett32(F < D ? tot[r] : static_cast<uint32_t>(acc[r]) + g.shift,
+                       g.q, g.m32);
+}
+
+// One persistent block walks tiles blockIdx.x, + gridDim.x, ..: the next
+// tile's copies are issued before the current one is converted and
+// multiplied (two raw stages; a_c and ext hold the current tile).
+template <int F>
+__global__ void __launch_bounds__(COEF_THREADS, 2)
+polymul_coef_kernel(const int64_t* __restrict__ a,
+                    const int64_t* __restrict__ b, int64_t* __restrict__ out,
+                    const CoefArgs g) {
+  extern __shared__ uint4 dyn[];
+  int64_t* raw = reinterpret_cast<int64_t*>(dyn);
+  int32_t* a_c = reinterpret_cast<int32_t*>(raw + COEF_STAGES * 2 *
+                                                      COEF_TILE * D);
+  int16_t* ext = reinterpret_cast<int16_t*>(a_c + COEF_TILE * COEF_A_STRIDE);
+  const int64_t tiles = (g.n + COEF_TILE - 1) / COEF_TILE;
+  const int pr = threadIdx.x >> 3, t = threadIdx.x & 7;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int64_t tile = blockIdx.x;
+  if (tile < tiles) coef_issue(raw, a, b, tile, g);
+  cp_async_commit();
+  for (int k = 0; tile < tiles; ++k, tile += gridDim.x) {
+    const int64_t next = tile + gridDim.x;
+    if (next < tiles)
+      coef_issue(raw + ((k + 1) % COEF_STAGES) * 2 * COEF_TILE * D, a, b,
+                 next, g);
+    cp_async_commit();
+    cp_async_wait_prior();           // this thread's copies of this tile
+    __syncthreads();                 // everyone's; the last tile's reads done
+    coef_convert(raw + (k % COEF_STAGES) * 2 * COEF_TILE * D, a_c, ext, g);
+    __syncthreads();
+    uint32_t res[8];
+    coef_product<F>(a_c, ext, pr, t, g, res);
+    // the warp's 4 products through its own 4 rows of ext (no other warp
+    // reads them), so that store r writes product 4 warp + r's 512
+    // contiguous bytes
+    __syncwarp();
+    uint4* st = reinterpret_cast<uint4*>(ext + warp * 4 * COEF_EXT);
+    st[2 * lane] = make_uint4(res[0], res[1], res[2], res[3]);
+    st[2 * lane + 1] = make_uint4(res[4], res[5], res[6], res[7]);
+    __syncwarp();
+    const uint32_t* rs = reinterpret_cast<const uint32_t*>(st);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int64_t row = tile * COEF_TILE + 4 * warp + r;
+      const uint2 v = *reinterpret_cast<const uint2*>(rs + 64 * r + 2 * lane);
+      if (row < g.n)
+        *reinterpret_cast<longlong2*>(out + row * D + 2 * lane) =
+            make_longlong2(v.x, v.y);
+    }
+  }
 }
 
 // (S0 + 2^8 S1 + 2^16 S2) mod p, in [0, 2p), for the int32 weight sums of
@@ -510,17 +720,88 @@ int sm_count() {
 
 }  // namespace
 
-extern "C" int polymul_coef_launch(const int64_t* a, const int64_t* b,
-                                   int64_t* out, int64_t n, int64_t a_stride,
-                                   int64_t b_stride, int64_t q,
-                                   void* stream) {
-  const int64_t tiles = (n + COEF_ROWS - 1) / COEF_ROWS;
-  const int64_t cap = static_cast<int64_t>(sm_count()) * 8;
+namespace {
+
+// The launcher's checks of the wrapper's constants (ops/polymul_cuda.py
+// coef_consts) for 2 <= q <= 32768: F h^2 < 2^31 (the int32 sums) and
+// 2 F h^2 + q <= 2^32 (the shifted sum below 2^32), S a multiple of q not
+// below F h^2, the Barrett constants; rows 16-byte aligned for cp.async.
+bool coef_args_ok(const int64_t* a, const int64_t* b, const int64_t* out,
+                  const CoefArgs& g, int flush) {
+  const int64_t q = g.q, h = g.h, fh2 = static_cast<int64_t>(flush) * h * h;
+  const bool consts =
+      h == q / 2 &&
+      (flush == 8 || flush == 16 || flush == 32 || flush == 64) &&
+      fh2 < (1LL << 31) && 2 * fh2 + q <= (1LL << 32) && g.shift % q == 0 &&
+      g.shift >= fh2 && g.shift < fh2 + q &&
+      g.m32 == (1ULL << 32) / static_cast<uint64_t>(q) &&
+      g.m64 == ~0ULL / static_cast<uint64_t>(q);
+  const bool shape = g.n < (1LL << 31) && g.n_inner >= 1;
+  const bool aligned =
+      (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+       reinterpret_cast<uintptr_t>(out)) % 16 == 0 &&
+      ((g.a_outer | g.a_inner | g.b_outer | g.b_inner) & 1) == 0;
+  return consts && shape && aligned;
+}
+
+template <int F>
+cudaError_t launch_coef(const int64_t* a, const int64_t* b, int64_t* out,
+                        const CoefArgs& g, cudaStream_t stream) {
+  // the shared-memory attribute and the blocks per SM, once (one device)
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        polymul_coef_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(COEF_SMEM));
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, polymul_coef_kernel<F>, COEF_THREADS, COEF_SMEM);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) per_sm = 1;
+  }
+  const int64_t tiles = (g.n + COEF_TILE - 1) / COEF_TILE;
+  const int64_t cap = static_cast<int64_t>(sm_count()) * per_sm;
   const unsigned blocks = static_cast<unsigned>(tiles < cap ? tiles : cap);
-  polymul_coef_kernel<<<blocks, COEF_THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      a, b, out, n, a_stride, b_stride, q);
-  return static_cast<int>(cudaGetLastError());
+  polymul_coef_kernel<F><<<blocks, COEF_THREADS, COEF_SMEM, stream>>>(
+      a, b, out, g);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// out (n, 64) contiguous; row r = ro n_inner + ri reads a at a + ro a_outer
+// + ri a_inner and b likewise (strides in int64 elements, 0 for a
+// broadcast).  flush, shift, m32 and m64 from ops/polymul_cuda.py
+// coef_consts(q); cudaErrorInvalidValue where the launcher's checks fail.
+extern "C" int polymul_coef_launch(const int64_t* a, const int64_t* b,
+                                   int64_t* out, int64_t n, int64_t n_inner,
+                                   int64_t a_outer, int64_t a_inner,
+                                   int64_t b_outer, int64_t b_inner,
+                                   int64_t q, int flush, uint32_t shift,
+                                   uint32_t m32, uint64_t m64, void* stream) {
+  CoefArgs g;
+  g.n = n;
+  g.n_inner = n_inner;
+  g.a_outer = a_outer;
+  g.a_inner = a_inner;
+  g.b_outer = b_outer;
+  g.b_inner = b_inner;
+  g.q = static_cast<uint32_t>(q);
+  g.m32 = m32;
+  g.shift = shift;
+  g.h = static_cast<int32_t>(q / 2);
+  g.m64 = m64;
+  if (q < 2 || q > 32768 || !coef_args_ok(a, b, out, g, flush))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (flush) {
+    case 64: err = launch_coef<64>(a, b, out, g, st); break;
+    case 32: err = launch_coef<32>(a, b, out, g, st); break;
+    case 16: err = launch_coef<16>(a, b, out, g, st); break;
+    case 8: err = launch_coef<8>(a, b, out, g, st); break;
+  }
+  return static_cast<int>(err);
 }
 
 namespace {

@@ -42,7 +42,8 @@ _SIGNATURES = {
                         _U32, _I, _I, _I, _I, _I, _P),
     "cd_sum_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I64, _U64, _U64, _U32,
                       _U32, _I, _I, _I, _I, _I, _P),
-    "polymul_coef_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _P),
+    "polymul_coef_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
+                            _I64, _I, _U32, _U32, _U64, _P),
     "polymul_bhat_launch": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I,
                             _P),
     "cuda_error_string": (_I,),

@@ -22,11 +22,15 @@ coefficient shape; bhat's leading axis is the prime axis), unlike the
 Pallas version, which broadcasts b to a's shape only.  A fixed operand is
 passed with one row, e.g. bhat (P, 1, d) against a (N, d); the kernel then
 reads that row for every product instead of a materialised copy.  The
-wrappers launch the kernel for CUDA tensors and take the plain version only
-for CPU tensors.
+coefficient kernel takes any broadcast that two row strides per operand
+describe (``row_geometry``), e.g. the fold's (r, 1, d) x (1, r, d), with
+no copy.  The wrappers launch the kernel for CUDA tensors and take the
+plain version only for CPU tensors.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -102,7 +106,7 @@ def _check_plan(plan) -> None:
 
 def _rows(x: torch.Tensor, shape: tuple, name: str, lead: tuple = ()):
     """x as contiguous rows of d for a broadcast to lead + shape, and the
-    row stride the kernel reads them with: 0 where x holds one row per
+    row stride the bhat kernel reads them with: 0 where x holds one row per
     leading index (a fixed operand), else d."""
     d = shape[-1]
     if x.shape[len(lead):-1].numel() == 1:
@@ -115,8 +119,98 @@ def _rows(x: torch.Tensor, shape: tuple, name: str, lead: tuple = ()):
     return rows, stride
 
 
+INT32_MAX = (1 << 31) - 1
+
+
+@functools.cache
+def coef_consts(q: int) -> tuple[int, int, int, int]:
+    """The coefficient kernel's constants at q: (F, S, floor(2^32 / q),
+    floor((2^64 - 1) / q)).  F, the flush length, is the longest of 64, 32,
+    16, 8 terms whose centred products (each at most h^2, h = q // 2) sum
+    exactly in int32 and whose sum shifted by S, the least multiple of q
+    not below F h^2, stays below 2^32 (barrett32's range); the launcher
+    checks the same bounds."""
+    h = q // 2
+    for flush in (64, 32, 16, 8):
+        fh2 = flush * h * h
+        if fh2 <= INT32_MAX and 2 * fh2 + q <= 1 << 32:
+            return flush, -(-fh2 // q) * q, (1 << 32) // q, \
+                ((1 << 64) - 1) // q
+    raise ValueError(f"no flush length for q = {q}")
+
+
+def row_geometry(lead: tuple, sa: list, sb: list) -> tuple | None:
+    """How the coefficient kernel reads a and b broadcast over the leading
+    shape ``lead``, given their element strides sa, sb over ``lead`` (0 on
+    a broadcast axis): (n_inner, a_outer, a_inner, b_outer, b_inner) such
+    that output row r = ro n_inner + ri reads a's row at ro a_outer + ri
+    a_inner and b's likewise; None where two strides do not describe it.
+    Axes of size 1 drop out, and neighbouring axes merge where both
+    operands step through them as through one."""
+    axes: list = []
+    for size, x, y in zip(lead, sa, sb):
+        if size == 1:
+            continue
+        if axes and axes[-1][1] == x * size and axes[-1][2] == y * size:
+            axes[-1] = (axes[-1][0] * size, x, y)
+        else:
+            axes.append((size, x, y))
+    if len(axes) > 2:
+        return None
+    if len(axes) == 2:
+        (_, ao, bo), (n_inner, ai, bi) = axes
+        return n_inner, ao, ai, bo, bi
+    return (axes[0][0], 0, axes[0][1], 0, axes[0][2]) if axes else \
+        (1, 0, 0, 0, 0)
+
+
+def _kernel_rows(x: torch.Tensor, d: int) -> torch.Tensor:
+    """x itself where the kernel can read its rows (d contiguous
+    coefficients, 16-byte aligned, even row strides), else a contiguous
+    copy of its rows."""
+    if x.shape[-1] != d:
+        return torch.broadcast_to(x, x.shape[:-1] + (d,)).contiguous()
+    if x.data_ptr() % 16 == 0 and (x.is_contiguous() or (
+            x.stride(-1) == 1 and all(
+                st % 2 == 0 for st, size in zip(x.stride()[:-1], x.shape)
+                if size > 1))):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _lead_strides(x: torch.Tensor, lead: tuple) -> list:
+    """x's element strides over the leading shape ``lead`` it broadcasts
+    to: 0 on an axis that x lacks or holds once."""
+    k = x.dim() - 1
+    st = x.stride()
+    return [0] * (len(lead) - k) + [
+        st[i] if x.shape[i] != 1 else 0 for i in range(k)]
+
+
+def coef_operands(a: torch.Tensor, b: torch.Tensor, shape: tuple):
+    """(a', b', (n_inner, a_outer, a_inner, b_outer, b_inner)): the
+    tensors whose data the kernel reads for a and b broadcast to
+    ``shape``, and the row geometry it reads them with.  a' is a itself
+    (no copy) where its rows are aligned and ``row_geometry`` describes
+    the broadcast (every shape of the main path and config 2); else a copy
+    of a, or at worst of its broadcast."""
+    lead = shape[:-1]
+    a, b = _kernel_rows(a, shape[-1]), _kernel_rows(b, shape[-1])
+    geom = row_geometry(lead, _lead_strides(a, lead), _lead_strides(b, lead))
+    if geom is None:
+        a = torch.broadcast_to(a, shape).contiguous()
+        b = torch.broadcast_to(b, shape).contiguous()
+        geom = row_geometry(lead, _lead_strides(a, lead),
+                            _lead_strides(b, lead))
+    return a, b, geom
+
+
 def _launch_coef(a: torch.Tensor, b: torch.Tensor, plan) -> torch.Tensor:
     _check_plan(plan)
+    for x, name in ((a, "a"), (b, "b")):
+        if not x.is_cuda or x.dtype != torch.int64:
+            raise ValueError(f"{name} must be an int64 CUDA tensor, got "
+                             f"{x.dtype} on {x.device}")
     shape = tuple(torch.broadcast_shapes(a.shape, b.shape))
     if shape[-1] != plan.d:
         raise ValueError(f"operands of shape {tuple(a.shape)}, "
@@ -125,11 +219,10 @@ def _launch_coef(a: torch.Tensor, b: torch.Tensor, plan) -> torch.Tensor:
     n = out.numel() // plan.d
     if n == 0:
         return out
-    a2, a_stride = _rows(a, shape, "a")
-    b2, b_stride = _rows(b, shape, "b")
+    a, b, geom = coef_operands(a, b, shape)
     err = cuda_lib.load().lib.polymul_coef_launch(
-        a2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, a_stride, b_stride,
-        plan.q, cuda_lib.stream_ptr(a.device))
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), n, *geom, plan.q,
+        *coef_consts(plan.q), cuda_lib.stream_ptr(a.device))
     cuda_lib.check(err)
     KERNEL.launches += 1
     return out

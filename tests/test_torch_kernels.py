@@ -9,7 +9,8 @@ the fused Pallas polymul and the XLA transforms: past one Pallas block
 random-residue evaluation-domain operand.  On a CUDA machine, also each
 CUDA kernel against its plain version, kernels 2-4 in both their modes (the
 big-q plain versions are held against JAX in tests/test_torch_bigq.py),
-and the tensor-core bhat and Ajtai kernels on edge inputs.
+the tensor-core bhat and Ajtai kernels and the coefficient kernel on edge
+inputs.
 
 JAX is imported only by the ``jx`` fixture, so on a card machine without
 JAX ``python -m pytest tests/test_torch_kernels.py -m cuda --noconftest``
@@ -243,6 +244,20 @@ def test_cuda_polymul_matches_plain():
     torch.cuda.synchronize()
     for got, want in pairs:
         assert torch.equal(got, want)
+    # the coefficient kernel's edge cases (tests/test_torch_coef_kernel.py)
+    # at q = 8191 and P_MAX, against the plain version of the operands'
+    # residues mod q (the plain version takes |x| < q)
+    from test_torch_coef_kernel import KINDS, coef_inputs
+    for q in (8191, 32513):
+        qplan = tntt.make_plan(q)
+        for kind in KINDS:
+            ca, cb = coef_inputs(q, kind,
+                                 np.random.default_rng(q + len(kind)), "cuda")
+            got = polymul_cuda.negacyclic_polymul(ca, cb, qplan)
+            want = polymul_cuda.negacyclic_polymul_plain(
+                torch.remainder(ca, q), torch.remainder(cb, q), qplan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (q, kind)
 
 
 @pytest.mark.cuda
