@@ -8,15 +8,19 @@ JAX golden digests and at the 2^14 base, and does the same at the
 2^32-scale modulus (``cli --big-q``, with and without ``-R``).  Also runs
 the JL projection on a witness of 8,388,608 coefficients, above the
 4,194,303 where the port's projection used to stop, exact on the rows it
-checks against numpy.
+checks against numpy.  Then the Fiat-Shamir mode (``cli --fs``): the
+device SHA-256 stream held equal to hashlib, config-1 ``--fs`` at both
+moduli and ``--fs -R`` against the JAX golden file, and ``prove_fs`` /
+``verify_fs`` at 2^14 at both moduli; and phased, checkpointed proving
+(``cli --phases`` / ``--ckpt``) at 2^14, resumed after each phase.
 
 Usage (from the repository root, on a machine with one CUDA card):
     python3 chip_smoke.py
 
 Every phase raises on failure, so the script exits non-zero; without a
 CUDA device it exits non-zero before printing any result.  The line before
-the last lists each kernel with its launches in the 2^14 recursion run of
-its modulus, its time beside the plain version's, a library call's and its
+the last lists each kernel with its launches in the 2^14 runs of the main
+paths (``-R``, ``--fs`` and ``--phases`` at its modulus), its time beside the plain version's, a library call's and its
 bound; the last line of standard output is the result JSON.  Imports
 nothing of JAX.
 """
@@ -38,6 +42,7 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "labrador_tpu_torch" / "golden" / "config1.json"
 GOLDEN_R = ROOT / "labrador_tpu_torch" / "golden" / "config1_recursion.json"
 GOLDEN_BIG = ROOT / "labrador_tpu_torch" / "golden" / "config1_bigq.json"
+GOLDEN_FS = ROOT / "labrador_tpu_torch" / "golden" / "config1_fs.json"
 REAL = dict(n=16, r=16, kappa=256)       # BASELINE.json config 3
 BIG_Q = dict(q_start=(1 << 32) - 1, exact_digits=True)   # cli --big-q
 TIMED_RUNS = 3
@@ -439,6 +444,17 @@ def polymul_cases() -> tuple[list, dict]:
     return cases, yard
 
 
+def _test_module(name: str):
+    """A JAX-free module of tests/, for its case lists and flows."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "tests" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def coef_edge_cases() -> list:
     """Edge inputs of kernel 1's coefficient variant, (label, plan, a, b)
     on the card: the input kinds of ``tests/test_torch_coef_kernel.py``
@@ -450,14 +466,9 @@ def coef_edge_cases() -> list:
     broadcast over three axes).  Held against the plain version of the
     operands' residues mod q: the plain version takes |x| < q, beyond
     which its CRT transforms wrap."""
-    import importlib.util
-
     from labrador_tpu_torch.ops import ntt
 
-    spec = importlib.util.spec_from_file_location(
-        "coef_kernel_tests", ROOT / "tests" / "test_torch_coef_kernel.py")
-    tests = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tests)
+    tests = _test_module("test_torch_coef_kernel")
     cases = []
     for q in (8191, 32513):
         plan = ntt.make_plan(q)
@@ -1033,7 +1044,7 @@ def _profile_folded_prove(res, label: str = "2^14 -R") -> None:
     for (_, _, fn), row in pstats.Stats(prof).stats.items():
         cum[fn] = max(cum.get(fn, 0.0), row[3])
     names = ("prove_phase1", "prove_phase2a", "prove_phase2b",
-             "prove_phase3", "sample_challenge", "sample_jl_matrix",
+             "prove_phase3", "sample_challenge", "sample_jl",
              "jl_project", "jl_projection", "aggregate_phi_pp",
              "phi_alpha_modq", "_alpha_contract_b", "ajtai_commit",
              "u1_from_digits", "u2_from_digits", "gram_hat")
@@ -1097,6 +1108,219 @@ def phase_jl_projection() -> None:
         f"inputs ({pi.numel() / 1e9:.3f} GB of pi)")
 
 
+def _host_ms(fn, reps: int = TIMED_RUNS) -> tuple[float, object]:
+    """Median host-clock ms of reps calls of fn(), each between device
+    syncs, and the last call's result."""
+    times = []
+    for _ in range(reps):
+        _sync()
+        t0 = time.perf_counter()
+        out = fn()
+        _sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+SHA_PARTIAL_WORDS = 8 * 1000 + 3        # a partial final block
+
+
+def phase_sha_stream() -> None:
+    """The device route of the SHA-256 streams (``sha_prng.stream_device``,
+    a batched compress in torch ops) held equal to hashlib on the card at
+    the 2^14 JL size (16 keys, 256 x 1024 words each: 524,288 blocks) and
+    at a partial final block; then, host clock after sync, the device and
+    the host route at the JL size, one 2^14 FS JL attempt (``sample_jl``
+    on a ShaKey: 16 splits, the stream, the ternary map) and the pi
+    absorb (``hash_arrays`` of the attempt's 4,194,304 int8 entries)."""
+    import hashlib
+
+    from labrador_tpu_torch import keys, prover
+    from labrador_tpu_torch.ops import sha256, sha_prng
+    from labrador_tpu_torch.params import LabradorParams
+
+    p = LabradorParams(n=REAL["n"], r=REAL["r"], kappa_override=REAL["kappa"])
+    ks = [hashlib.sha256(b"chip smoke %d" % i).digest() for i in range(p.r)]
+    n_jl = 256 * p.n * p.d
+    host_s = {}
+    for label, kk, n in (("2^14 JL", ks, n_jl),
+                         ("partial final block", ks[:3], SHA_PARTIAL_WORDS)):
+        t0 = time.perf_counter()
+        want = sha_prng.stream_host(kk, n).astype(np.int64)
+        host_s[label] = time.perf_counter() - t0
+        got = sha_prng.stream_device(kk, n, "cuda").cpu().numpy()
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"SHA-256 stream, {label}: device route != "
+                                 f"hashlib")
+        log(f"sha stream {label}: {len(kk)} keys x {n} words, device route "
+            f"== hashlib (bit-equal)")
+    dev_ms, _ = _host_ms(lambda: sha_prng.stream_device(ks, n_jl, "cuda"))
+    jl_ms, pi = _host_ms(lambda: prover.sample_jl(keys.ShaKey(ks[0]), p,
+                                                  "cuda"))
+    absorb_ms, _ = _host_ms(lambda: sha256.hash_arrays(ks[0], pi, domain=3))
+    blocks = p.r * n_jl // 8
+    log(f"sha stream 2^14 JL ({blocks} blocks): device route {dev_ms:.2f} "
+        f"ms, hashlib {host_s['2^14 JL'] * 1e3:.2f} ms (one run); one FS JL "
+        f"attempt (sample_jl) {jl_ms:.2f} ms; pi absorb ({pi.numel()} "
+        f"int8 entries, copy to host and hashlib) {absorb_ms:.2f} ms "
+        f"(medians of {TIMED_RUNS}, host clock after sync)")
+
+
+def _add_counts(total: dict, counts: dict) -> dict:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_fs_config1() -> None:
+    """``cli --fs`` at config 1 at q = 8191 and q = 4294967311, and ``cli
+    --fs -R``, against the JAX golden file (tests/test_torch_fs_golden.py's
+    record: digests, fs sizes, verify and FS reports, the folded shape);
+    the commitment kernels launch in each run, kernel 1 in ``--fs -R``."""
+    flows = _test_module("test_torch_fs_golden")
+    golden = json.loads(GOLDEN_FS.read_text())
+    for mode in ("small_q", "big_q", "recursion"):
+        _reset_counts()
+        got = flows.port_fs_flow(big_q=mode == "big_q",
+                                 recursive=mode == "recursion",
+                                 device="cuda")
+        launches = _counts()
+        if got != golden[mode]:
+            raise AssertionError(f"config-1 --fs {mode}: {got} != JAX golden "
+                                 f"{golden[mode]}")
+        if mode == "big_q":
+            _require_big_only(launches, "config-1 --fs --big-q")
+        else:
+            _require_launched(launches, ALL_KERNELS if mode == "recursion"
+                              else COMMITMENT_KERNELS, f"config-1 --fs {mode}")
+        base = got["base"] if mode == "recursion" else got
+        log(f"config1 --fs {mode}: sha256 {base['transcript_sha256']}, fs "
+            f"size {base['transcript_size_in_bytes_fs']} B == JAX golden; "
+            f"fs_challenge_report all true"
+            + (f"; folded sha256 {got['folded']['transcript_sha256']} == "
+               f"golden" if mode == "recursion" else "")
+            + f"; launches {launches}")
+
+
+def phase_fs_real(big_q: bool) -> dict:
+    """``cli --fs`` at 2^14 (n = r = 16, kappa = 256): every check and FS
+    check true; prove_fs and verify_fs apart, each launching the
+    commitment kernels of the modulus, prove_fs deterministic; prove_fs
+    against prove and fs_challenge_report timed.  Returns the launches of
+    the CLI flow, for the kernels line."""
+    from labrador_tpu_torch import prover, structs, verifier
+    from labrador_tpu_torch.cli import run_flow
+
+    tag = "2^14 --fs" + (" --big-q" if big_q else "")
+    _reset_counts()
+    res = run_flow(**REAL, seed=42, device="cuda", big_q=big_q, fs=True)
+    launches = _counts()
+    p, st, crs = res.params, res.state, res.crs
+    mode = "exact" if big_q else "reference"
+    if not (bool(res.proof.jl_ok) and bool(res.proof.b_pp_ok)):
+        raise AssertionError(f"{tag}: prover self-checks failed")
+    if not res.ok or not all(res.report.values()):
+        failed = [k for k, v in res.report.items() if not v]
+        raise AssertionError(f"{tag}: verification failed: {failed}")
+    _reset_counts()
+    proof = prover.prove_fs(p, res.witness, st, crs, mode)
+    in_prove = _counts()
+    _reset_counts()
+    ok = verifier.verify_fs(p, st, proof, crs, decomp_mode=mode)
+    in_verify = _counts()
+    _sync()
+    if not ok:
+        raise AssertionError(f"{tag}: verify_fs rejected a second proof")
+    if structs.transcript_sha256(proof, p.q) != \
+            structs.transcript_sha256(res.proof, p.q):
+        raise AssertionError(f"{tag}: prove_fs is not deterministic")
+    for counts, where in ((launches, "flow"), (in_prove, "prove_fs"),
+                          (in_verify, "verify_fs")):
+        if big_q:
+            _require_big_only(counts, f"{tag} {where}")
+        else:
+            _require_launched(counts, COMMITMENT_KERNELS, f"{tag} {where}")
+    fs_ms, inter_ms = [], []
+    for _ in range(TIMED_RUNS):
+        fs_ms.append(_host_ms(lambda: prover.prove_fs(
+            p, res.witness, st, crs, mode), 1)[0])
+        inter_ms.append(_host_ms(lambda: prover.prove(
+            p, res.witness, st, crs, res.verifier_key, mode), 1)[0])
+    report_ms, _ = _host_ms(lambda: verifier.fs_challenge_report(p, st, proof,
+                                                                crs))
+    verify_ms, _ = _host_ms(lambda: verifier.verify_report(p, st, proof, crs,
+                                                          mode))
+    log(f"{tag}: every check and FS check true; launches in the flow "
+        f"{launches}, prove_fs {in_prove}, verify_fs {in_verify}")
+    log(f"{tag}: prove_fs {statistics.median(fs_ms):.2f} ms against prove "
+        f"{statistics.median(inter_ms):.2f} ms (medians of {TIMED_RUNS}, "
+        f"taken in turns; all: {', '.join(f'{t:.2f}' for t in fs_ms)} / "
+        f"{', '.join(f'{t:.2f}' for t in inter_ms)}); fs_challenge_report "
+        f"{report_ms:.2f} ms, verify_report {verify_ms:.2f} ms (medians "
+        f"of {TIMED_RUNS}); host clock after sync")
+    log(f"{tag}: fs size "
+        f"{structs.transcript_size_in_bytes(proof, p.q, fs=True)} B")
+    return launches
+
+
+class _Preempted(Exception):
+    pass
+
+
+def phase_phases_real() -> dict:
+    """``cli --phases`` at 2^14: the phased proof equals ``prove``'s
+    digest; with a checkpoint, a run stopped in phase 2 (or 3) and resumed
+    from its phase-1 (or phase-2) checkpoint does too.  Prints each
+    run's PhaseTimer report.  Returns the launches of the phased flow."""
+    import tempfile
+
+    from labrador_tpu_torch import prover, structs
+    from labrador_tpu_torch.cli import run_flow
+    from labrador_tpu_torch.utils import checkpoint
+    from labrador_tpu_torch.utils.profiling import PhaseTimer
+
+    _reset_counts()
+    res = run_flow(**REAL, seed=42, device="cuda", phases=True)
+    launches = _counts()
+    _require_launched(launches, COMMITMENT_KERNELS, "2^14 --phases")
+    if not res.ok:
+        raise AssertionError(f"2^14 --phases verification failed: "
+                             f"{res.report}")
+    p = res.params
+    args = (p, res.witness, res.state, res.crs, res.verifier_key)
+    want = structs.transcript_sha256(prover.prove(*args), p.q)
+    if structs.transcript_sha256(res.proof, p.q) != want:
+        raise AssertionError("2^14 --phases: phased proof != prove")
+    log(f"2^14 --phases: digest == prove's {want}; launches {launches}; "
+        f"PhaseTimer: " + "; ".join(res.timer.report().splitlines()))
+
+    def stop(*a, **k):
+        raise _Preempted
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for stop_in, saved in (("prove_phase2a", 1), ("prove_phase3", 2)):
+            path = str(Path(tmp) / f"ckpt{saved}.npz")
+            real = getattr(prover, stop_in)
+            setattr(prover, stop_in, stop)
+            try:
+                prover.prove_checkpointed(*args, ckpt_path=path)
+            except _Preempted:
+                pass
+            finally:
+                setattr(prover, stop_in, real)
+            if checkpoint.load_meta(path)["phases_done"] != saved:
+                raise AssertionError(f"--ckpt: no phase-{saved} checkpoint")
+            timer = PhaseTimer("cuda")
+            resumed = prover.prove_checkpointed(*args, ckpt_path=path,
+                                                timer=timer)
+            if structs.transcript_sha256(resumed, p.q) != want:
+                raise AssertionError(f"--ckpt: proof resumed after phase "
+                                     f"{saved} != prove")
+            log(f"2^14 --ckpt: resumed after phase {saved}, digest == "
+                f"prove's; PhaseTimer: "
+                + "; ".join(timer.report().splitlines()))
+    return launches
+
+
 def main() -> int:
     phase_device()
     phase_build()
@@ -1110,8 +1334,14 @@ def main() -> int:
     phase_bigq_config1()
     phase_bigq_real()
     phase_bigq_recursion_config1()
-    launches.update({k: v for k, v in phase_bigq_recursion_real(stats).items()
-                     if k in BIG_KERNELS})
+    _add_counts(launches, {k: v for k, v in
+                           phase_bigq_recursion_real(stats).items()
+                           if k in BIG_KERNELS})
+    phase_sha_stream()
+    phase_fs_config1()
+    _add_counts(launches, phase_fs_real(big_q=False))
+    _add_counts(launches, phase_fs_real(big_q=True))
+    _add_counts(launches, phase_phases_real())
     rows = []
     for k in _kernels():
         st = stats[k.name]

@@ -4,14 +4,20 @@
 Usage:
     python -m labrador_tpu_torch.cli [--verbose] [--device {cuda,cpu}]
                                      [--n N] [--r R] [--kappa K] [--seed S]
-                                     [--big-q] [-R]
+                                     [--big-q] [-R] [--fs] [--phases]
+                                     [--ckpt PATH]
 
 ``--device cuda`` (the default) runs the kernels and fails if no card is
 present; ``--device cpu`` runs their plain PyTorch versions.  ``--big-q``
 takes the 2^32-scale modulus q = 4294967311 (``q_start = 2^32 - 1``) with
 exact digits, as the JAX CLI does.  ``-R`` proves with exact digits, folds
 the proof into a recursive instance (``recursion.fold``) and proves and
-verifies that too.  Same seeds give the same transcripts as the JAX
+verifies that too.  ``--fs`` proves non-interactively (Fiat-Shamir) and
+verifies with ``verify_fs``; with ``-R`` the folded instance is then
+proved interactively, as in the JAX CLI.  ``--phases`` proves one phase
+at a time and prints each phase's time with ``--verbose``; ``--ckpt PATH``
+also saves each phase to PATH and resumes from it.  ``--fs`` takes
+precedence over both.  Same seeds give the same transcripts as the JAX
 package.
 """
 
@@ -26,6 +32,7 @@ import torch
 from . import keys, prover, recursion, sampling, structs, verifier
 from .crs import CRS
 from .params import LabradorParams
+from .utils.profiling import PhaseTimer
 
 # the JAX CLI's CRS seed derivations from --seed (base, folded instance)
 CRS_SEED_MULT = 0x9E3779B97F4A7C15
@@ -33,13 +40,6 @@ FOLDED_CRS_XOR = 0xF01D
 # --big-q: the modulus search start of the reference's commented
 # 2^32-scale configuration (constants.rs:196), q = 4294967311
 BIG_Q_START = (1 << 32) - 1
-
-_NOT_PORTED = {
-    "fs": "Fiat-Shamir mode (--fs) belongs to the FS slice",
-    "phases": "--phases belongs to the checkpoint slice",
-    "ckpt": "--ckpt belongs to the checkpoint slice",
-}
-
 
 @dataclass
 class FoldResult:
@@ -65,9 +65,11 @@ class FlowResult:
     crs: CRS
     proof: structs.Transcript
     report: dict
+    ok: bool
     prove_s: float
     verify_s: float
     verifier_key: keys.Key
+    timer: PhaseTimer | None = None
     folded: FoldResult | None = None
 
 
@@ -98,10 +100,14 @@ def make_params(n: int, r: int, kappa: int = 0, recursion: bool = False,
 
 def run_flow(n: int = 2, r: int = 2, kappa: int = 0, seed: int = 42,
              device="cuda", verbose: bool = False,
-             recursion: bool = False, big_q: bool = False) -> FlowResult:
+             recursion: bool = False, big_q: bool = False, fs: bool = False,
+             phases: bool = False, ckpt: str = "") -> FlowResult:
     """Witness, CRS, state, prove, verify_report — the CLI's flow; with
     ``recursion`` (exact digits) also ``fold_flow`` on the proof; with
-    ``big_q`` at the 2^32-scale modulus."""
+    ``big_q`` at the 2^32-scale modulus.  ``fs``: ``prove_fs``, and the
+    report adds ``fs_challenge_report``'s checks (the verdict is
+    ``verify_fs``'s); else ``phases`` or ``ckpt``: ``prove_checkpointed``
+    with a PhaseTimer (and checkpoint path ``ckpt``)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available")
@@ -119,17 +125,30 @@ def run_flow(n: int = 2, r: int = 2, kappa: int = 0, seed: int = 42,
     state = structs.generate_state(ks, witness, p)
     if verbose:
         print("Generating proof..")
+    timer = None
     _sync(device)
     t0 = time.perf_counter()
-    proof = prover.prove(p, witness, state, crs, kv, decomp_mode)
+    if fs:
+        proof = prover.prove_fs(p, witness, state, crs, decomp_mode)
+    elif phases or ckpt:
+        timer = PhaseTimer(device)
+        proof = prover.prove_checkpointed(p, witness, state, crs, kv,
+                                          ckpt or None, decomp_mode, timer)
+    else:
+        proof = prover.prove(p, witness, state, crs, kv, decomp_mode)
     _sync(device)
     t1 = time.perf_counter()
     report = verifier.verify_report(p, state, proof, crs, decomp_mode)
+    if fs:
+        report.update(verifier.fs_challenge_report(p, state, proof, crs))
+        ok = report["all_with_bpp"] and report["fs_all"]
+    else:
+        ok = report["all"]
     _sync(device)
     t2 = time.perf_counter()
-    res = FlowResult(p, witness, state, crs, proof, report, t1 - t0,
-                     t2 - t1, kv)
-    if recursion and report["all"]:
+    res = FlowResult(p, witness, state, crs, proof, report, ok, t1 - t0,
+                     t2 - t1, kv, timer)
+    if recursion and ok:
         res.folded = fold_flow(res, seed)
     return res
 
@@ -169,29 +188,36 @@ def main(argv=None) -> int:
     ap.add_argument("--kappa", type=int, default=0,
                     help="override the commitment rank (0 = reference n*d)")
     ap.add_argument("--seed", type=int, default=42)
-    ap.add_argument("--fs", action="store_true")
+    ap.add_argument("--fs", action="store_true",
+                    help="non-interactive (Fiat-Shamir) mode")
     ap.add_argument("--big-q", action="store_true",
                     help="2^32-scale modulus q = 4294967311, exact digits")
     ap.add_argument("-R", "--recursion", action="store_true",
                     help="fold the proof into a recursive instance and "
                          "prove+verify that too")
-    ap.add_argument("--phases", action="store_true")
-    ap.add_argument("--ckpt", type=str, default="")
+    ap.add_argument("--phases", action="store_true",
+                    help="prove one phase at a time, with a per-phase "
+                         "timer report")
+    ap.add_argument("--ckpt", type=str, default="",
+                    help="checkpoint path: save each proving phase and "
+                         "resume from the last one saved (implies "
+                         "--phases)")
     args = ap.parse_args(argv)
-    for flag, why in _NOT_PORTED.items():
-        if getattr(args, flag):
-            ap.error(f"not yet ported: {why}")
 
     res = run_flow(args.n, args.r, args.kappa, args.seed, args.device,
-                   args.verbose, args.recursion, args.big_q)
+                   args.verbose, args.recursion, args.big_q, args.fs,
+                   args.phases, args.ckpt)
     proof, p = res.proof, res.params
+    if res.timer is not None and args.verbose:
+        print("Per-phase prover timings:")
+        print(res.timer.report())
     if not bool(proof.jl_ok):
         print("Error: JL projection failed after max retries")
         return 1
     if not bool(proof.b_pp_ok):
         print("Error: b'' constant-term self-check failed")
         return 1
-    if not res.report["all"]:
+    if not res.ok:
         failed = [k for k, v in res.report.items() if not v]
         print(f"Error: Proof Verification Failed: {failed}")
         return 1
@@ -200,6 +226,10 @@ def main(argv=None) -> int:
         print("=========================")
         size = structs.transcript_size_in_bytes(proof, p.q)
         print(f"Size of proof: {size / 1024:.2f} KB ({size} B)")
+        if args.fs:
+            size = structs.transcript_size_in_bytes(proof, p.q, fs=True)
+            print(f"Size of the non-interactive proof: {size / 1024:.2f} "
+                  f"KB ({size} B)")
         print(f"prove: {res.prove_s:.3f}s  verify: {res.verify_s:.3f}s")
     if args.recursion:
         return _report_folded(res, args.verbose)

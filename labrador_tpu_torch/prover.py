@@ -1,11 +1,12 @@
-"""The LaBRADOR prover, interactive mode, at small and big q.
+"""The LaBRADOR prover, interactive and Fiat-Shamir, at small and big q.
 
 Counterpart of ``labrador_tpu/prover.py`` (``prove_phase1/2a/2b/3``,
-``prove_impl``, ``prove``).  PyTorch runs eagerly, so the phases are plain
-functions and the JAX ``while_loop``s are bounded Python loops.  The
-relation is a dense ``structs.State`` or a ``recursion.FoldedState``.
-Every tensor lives on the witness's device; on CUDA the kernels run, on
-the CPU their plain versions.
+``prove_impl``, ``prove``, ``prove_fs``, ``prove_checkpointed``).  PyTorch
+runs eagerly, so the phases are plain functions and the JAX
+``while_loop``s are bounded Python loops.  The relation is a dense
+``structs.State`` or a ``recursion.FoldedState``.  Every tensor lives on
+the witness's device; on CUDA the kernels run, on the CPU their plain
+versions.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from .keys import Key, fold_in, split
 from .ops import ntt as ntt_ops
 from .ops import zq
 from .ops.modmath import mod_pos, mulmod, sum_sq_u64, to_signed_i32
-from .oracle import DOM_BPP, DOM_JL, DOM_U1, DOM_U2, InteractiveOracle
+from .oracle import (DOM_BPP, DOM_JL, DOM_U1, DOM_U2, FiatShamirOracle,
+                     InteractiveOracle)
 from .params import LabradorParams
 from .structs import State, Transcript, gram_hat
 
@@ -53,11 +55,22 @@ JL_CHUNK = 1 << 16
 JL_LIMBS = 4
 
 
-def sample_jl(key: Key, params: LabradorParams, device="cuda"):
+# random words drawn per batch of JL matrices (the int64 words take 32 MiB)
+JL_GROUP_WORDS = 1 << 22
+
+
+def sample_jl(key, params: LabradorParams, device="cuda"):
     """The JL matrices of one attempt: (r, 256, n*d) int8, one ternary
-    matrix per witness vector from split(key, r)."""
-    return torch.stack([sampling.sample_jl_matrix(k, params, device)
-                        for k in split(key, params.r)])
+    matrix per witness vector from split(key, r), drawn a group of keys
+    at a time."""
+    p = params
+    ks = split(key, p.r)
+    group = max(1, JL_GROUP_WORDS // (256 * p.n * p.d))
+    pi = torch.empty((p.r, 256, p.n * p.d), dtype=torch.int8, device=device)
+    for i in range(0, p.r, group):
+        pi[i:i + group] = sampling.sample_jl_matrices(ks[i:i + group], p,
+                                                      device)
+    return pi
 
 
 def jl_limb_dots(pi: torch.Tensor, w_c: torch.Tensor) -> torch.Tensor:
@@ -110,7 +123,7 @@ def jl_projection(pi: torch.Tensor, w_c: torch.Tensor):
     return jl_recombine(jl_limb_dots(pi, w_c))
 
 
-def jl_project(key: Key, witness_flat: torch.Tensor, params: LabradorParams):
+def jl_project(key, witness_flat: torch.Tensor, params: LabradorParams):
     """One JL attempt: ternary Pi per witness vector and the projection of
     the centred witness.  Returns (pi (r, 256, n*d) int8, projection (256,)
     int32-range int64, ok)."""
@@ -126,7 +139,7 @@ def jl_project(key: Key, witness_flat: torch.Tensor, params: LabradorParams):
     return pi, proj, ok
 
 
-def _jl_with_retries(key: Key, witness_flat: torch.Tensor,
+def _jl_with_retries(key, witness_flat: torch.Tensor,
                      params: LabradorParams):
     """JL projection retried with fold_in(key, i) for i < 6 (the reference
     retries five times, proofgen.rs:169-181); ok False after the last."""
@@ -264,3 +277,78 @@ def prove(params: LabradorParams, witness: torch.Tensor, state: State, crs,
     """Interactive-model proof: challenges from the verifier's key."""
     return prove_impl(params, witness, state, crs,
                       InteractiveOracle(vkey=verifier_key), decomp_mode)
+
+
+def prove_fs(params: LabradorParams, witness: torch.Tensor, state: State,
+             crs, decomp_mode: str = "reference") -> Transcript:
+    """Non-interactive (Fiat-Shamir) proof: challenges from a SHA-256
+    running hash of the protocol messages, with the CRS seed, the
+    parameter set and the statement bound into the initial state
+    (FS_SPEC.md)."""
+    return prove_impl(params, witness, state, crs,
+                      FiatShamirOracle.create(crs.key, state, params),
+                      decomp_mode)
+
+
+def _instance_meta(params: LabradorParams, decomp_mode: str) -> dict:
+    """What a checkpoint must match to be resumed."""
+    p = params
+    return dict(q=p.q, d=p.d, n=p.n, r=p.r, kappa=p.kappa,
+                k_count=p.k_count, decomp_mode=decomp_mode)
+
+
+def prove_checkpointed(params: LabradorParams, witness: torch.Tensor,
+                       state: State, crs, verifier_key: Key,
+                       ckpt_path: str | None = None,
+                       decomp_mode: str = "reference",
+                       timer=None) -> Transcript:
+    """Phase-dispatched proving: the phases of ``prove`` run one at a time
+    (1, 2a + 2b, 3), each timed by ``timer`` (a ``PhaseTimer``).  With
+    ``ckpt_path`` the oracle state and the phase dicts are saved after
+    phases 1 and 2, and a later call resumes after the last phase saved
+    there.  Interactive oracle only, as in the JAX package.  The same
+    bytes as ``prove``, resumed or not."""
+    from .utils import checkpoint
+    from .utils.profiling import PhaseTimer
+
+    p = params
+    dev = witness.device
+    oracle = InteractiveOracle(vkey=verifier_key)
+    timer = timer if timer is not None else PhaseTimer(dev)
+    meta = _instance_meta(p, decomp_mode)
+    ost = oracle.init()
+    ph1 = ph2 = None
+    done = 0
+    if ckpt_path and checkpoint.exists(ckpt_path):
+        saved = checkpoint.load_meta(ckpt_path)
+        if saved.get("instance") != meta:
+            raise ValueError(f"checkpoint {ckpt_path} is of another "
+                             f"instance: {saved.get('instance')} != {meta}")
+        done = int(saved["phases_done"])
+        loaded = checkpoint.load(ckpt_path, dev)
+        ph1, ph2 = loaded["ph1"], loaded.get("ph2")
+        ost = None if saved["ost"] is None else bytes.fromhex(saved["ost"])
+
+    def save(phases_done: int, **dicts):
+        checkpoint.save(ckpt_path, meta=dict(
+            phases_done=phases_done, instance=meta,
+            ost=None if ost is None else ost.hex()), **dicts)
+
+    if done < 1:
+        with timer.phase("p1_commitments"):
+            ost, ph1 = prove_phase1(p, witness, state, crs, oracle, ost,
+                                    decomp_mode)
+        if ckpt_path:
+            save(1, ph1=ph1)
+    if done < 2:
+        with timer.phase("p2_jl_aggregation_u2"):
+            ost, ph2a = prove_phase2a(p, witness, state, crs, oracle, ost,
+                                      ph1)
+            ost, ph2b = prove_phase2b(p, witness, state, crs, oracle, ost,
+                                      ph1, ph2a, decomp_mode)
+            ph2 = {**ph2a, **ph2b}
+        if ckpt_path:
+            save(2, ph1=ph1, ph2=ph2)
+    with timer.phase("p3_opening"):
+        ph3 = prove_phase3(p, witness, oracle, ost, ph2)
+    return Transcript(t=ph1["t"], g=ph1["g"], u_1=ph1["u_1"], **ph2, **ph3)

@@ -195,9 +195,15 @@ def sample_beta(key: Key, params: LabradorParams,
     return uniform_zq(key, (params.upper_bound, params.d), params.q, device)
 
 
+def sample_jl_matrices(ks: list, params: LabradorParams,
+                       device="cuda") -> torch.Tensor:
+    """(len(ks), 256, n*d) ternary int8 matrices, one per key, drawn in one
+    batch: two random bits b0, b1 -> b0 + b1 - 1 (P(-1) = P(+1) = 1/4)."""
+    b = keys.bits_stack(ks, (256, params.n * params.d), device)
+    return ((b & 1) + ((b >> 1) & 1) - 1).to(torch.int8)
+
+
 def sample_jl_matrix(key: Key, params: LabradorParams,
                      device="cuda") -> torch.Tensor:
-    """(256, n*d) ternary int8 matrix: two random bits b0, b1 -> b0 + b1 - 1
-    (P(-1) = P(+1) = 1/4)."""
-    b = keys.bits(key, (256, params.n * params.d), device)
-    return ((b & 1) + ((b >> 1) & 1) - 1).to(torch.int8)
+    """(256, n*d) ternary int8 matrix of one key."""
+    return sample_jl_matrices([key], params, device)[0]

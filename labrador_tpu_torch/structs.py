@@ -236,3 +236,25 @@ def save_transcript(tr: Transcript, path: str, q: int) -> None:
                              f"q = {q}")
         arrays[f.name] = a
     np.savez_compressed(path, **arrays)
+
+
+def load_transcript(path: str, device="cuda") -> Transcript:
+    """Read a transcript that this package's or the JAX package's
+    ``save_transcript`` wrote: a two-limb member pair ``<name>__hi`` /
+    ``<name>__lo`` becomes one int64 residue (hi << 16) | lo; int8 and
+    bool members keep their dtype, every other field becomes int64."""
+    fields = {}
+    with np.load(path) as z:
+        for k in z.files:
+            if k.endswith("__lo"):
+                continue
+            if k.endswith("__hi"):
+                name = k[:-len("__hi")]
+                a = (z[k].astype(np.int64) << 16) \
+                    | z[name + "__lo"].astype(np.int64)
+            else:
+                name, a = k, z[k]
+                if a.dtype not in (np.int8, np.bool_):
+                    a = a.astype(np.int64)
+            fields[name] = torch.from_numpy(a).to(device)
+    return Transcript(**fields)

@@ -1,8 +1,10 @@
-"""The LaBRADOR verifier: checks 8-20 and the b'' constant term.
+"""The LaBRADOR verifier: checks 8-20, the b'' constant term, and the
+Fiat-Shamir challenges.
 
 Counterpart of ``labrador_tpu/verifier.py`` (``check14_norm_bound``,
-``verify_report``, ``verify``), with the same report keys, for a dense
-``structs.State`` or a ``recursion.FoldedState``.  Checks 15, 19 and 20
+``verify_report``, ``verify``, ``fs_challenge_report``, ``verify_fs``),
+with the same report keys, for a dense ``structs.State`` or (interactive
+only) a ``recursion.FoldedState``.  Checks 15, 19 and 20
 re-expand the CRS through the commitment kernels (CUDA tensors) or their
 plain versions (CPU tensors).
 """
@@ -14,11 +16,15 @@ import math
 import numpy as np
 import torch
 
-from . import protocol
+from . import protocol, sampling
+from .keys import fold_in
 from .ops import ntt as ntt_ops
 from .ops import zq
 from .ops.modmath import mod_pos, sum_sq_u64, to_signed_i32, u64_sum
+from .oracle import DOM_BPP, DOM_JL, DOM_U1, DOM_U2, FiatShamirOracle
 from .params import LabradorParams
+from .prover import (JL_MAX_ATTEMPTS, TAG_ALPHA, TAG_BETA, TAG_CHALLENGE,
+                     TAG_JL, TAG_OMEGA, TAG_PSI, sample_jl)
 from .structs import State, Transcript
 
 
@@ -191,3 +197,71 @@ def verify(params: LabradorParams, state: State, proof: Transcript, crs,
            **kw) -> bool:
     """Verdict over the reference's 14-check predicate."""
     return verify_report(params, state, proof, crs, **kw)["all"]
+
+
+def _abs_i32(x: torch.Tensor) -> torch.Tensor:
+    """int32 ``abs`` of int32-range values: -2^31 stays -2^31."""
+    return torch.where(x == -(1 << 31), x, torch.abs(x))
+
+
+def fs_challenge_report(params: LabradorParams, state: State,
+                        proof: Transcript, crs) -> dict:
+    """Every challenge of the proof re-derived from the SHA-256 transcript
+    hash (seeded with the CRS key, the parameters and the statement,
+    FS_SPEC.md §2) and compared with the proof's, as {name: bool} with
+    'fs_all'; also the JL projection's norm bound ('fs_jl_norm')."""
+    p = params
+    dev = proof.z.device
+    oracle = FiatShamirOracle.create(crs.key, state, p)
+    checks: dict[str, bool] = {}
+
+    ost = oracle.absorb(oracle.init(), DOM_U1, [proof.u_1])
+    # the JL matrices: one of the prover's bounded retry attempts (the
+    # first match decides; a forged pi costs all of them)
+    jl_base = oracle.challenge_key(ost, TAG_JL)
+    checks["fs_jl_matrix"] = any(
+        torch.equal(sample_jl(fold_in(jl_base, a), p, dev), proof.pi)
+        for a in range(JL_MAX_ATTEMPTS))
+
+    # the projection's norm bound (verification.rs:568-579) on the centred
+    # int32 word of each entry, as the JAX package: every entry within
+    # sqrt(128)*beta first, so the 256-term sum of squares cannot wrap
+    # 2^64 and land under the bound
+    centered = to_signed_i32(zq.to_signed_small(proof.projection, p.q))
+    bound = 128 * p.beta_bound * p.beta_bound
+    entry_max = min(math.isqrt(bound), 2**31 - 1)
+    checks["fs_jl_norm"] = bool(torch.all(_abs_i32(centered) <= entry_max)) \
+        and sum_sq_u64(centered) <= bound
+
+    ost = oracle.absorb(ost, DOM_JL, [proof.pi, proof.projection])
+    ub = p.upper_bound
+    psi = torch.stack([sampling.sample_psi(
+        oracle.challenge_key(ost, TAG_PSI, i), p, dev) for i in range(ub)])
+    omega = torch.stack([sampling.sample_omega(
+        oracle.challenge_key(ost, TAG_OMEGA, i), p, dev) for i in range(ub)])
+    checks["fs_psi"] = zq.all_eq(psi, proof.psi)
+    checks["fs_omega"] = zq.all_eq(omega, proof.omega)
+
+    ost = oracle.absorb(ost, DOM_BPP, [proof.b_prime_prime])
+    alpha = sampling.sample_alpha(oracle.challenge_key(ost, TAG_ALPHA), p,
+                                  dev)
+    beta = sampling.sample_beta(oracle.challenge_key(ost, TAG_BETA), p, dev)
+    checks["fs_alpha"] = zq.all_eq(alpha, proof.alpha)
+    checks["fs_beta"] = zq.all_eq(beta, proof.beta)
+
+    ost = oracle.absorb(ost, DOM_U2, [proof.u_2])
+    c = torch.stack([sampling.sample_challenge(
+        oracle.challenge_key(ost, TAG_CHALLENGE, i), p, dev)
+        for i in range(p.r)])
+    checks["fs_challenge"] = zq.all_eq(c, proof.c)
+
+    checks["fs_all"] = all(checks.values())
+    return checks
+
+
+def verify_fs(params: LabradorParams, state: State, proof: Transcript, crs,
+              **kw) -> bool:
+    """Non-interactive verdict: checks 8-20, the b'' constant term and the
+    Fiat-Shamir challenges."""
+    return verify_report(params, state, proof, crs, **kw)["all_with_bpp"] \
+        and fs_challenge_report(params, state, proof, crs)["fs_all"]
