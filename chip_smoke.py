@@ -12,7 +12,15 @@ checks against numpy.  Then the Fiat-Shamir mode (``cli --fs``): the
 device SHA-256 stream held equal to hashlib, config-1 ``--fs`` at both
 moduli and ``--fs -R`` against the JAX golden file, and ``prove_fs`` /
 ``verify_fs`` at 2^14 at both moduli; and phased, checkpointed proving
-(``cli --phases`` / ``--ckpt``) at 2^14, resumed after each phase.
+(``cli --phases`` / ``--ckpt``) at 2^14, resumed after each phase.  Last,
+multi-device proving (``labrador_tpu_torch/parallel/``): the range modes
+of kernels 2-4 at the 2^14 shapes in 4 shards, each bit-equal to its
+plain version and the shards composed equal to the unranged kernel; then
+a world of 4 spawned ranks sharing the card over gloo proves config 1 on
+a dp 2 x rows 2 mesh against the JAX golden digests (both moduli, both
+oracles), 2^14 on rows 4 and BASELINE.json config 4 (2^20, big q) on rows
+2 against single-rank runs, the sharded verifier beside, each rank's
+launch counts showing the range modes.
 
 Usage (from the repository root, on a machine with one CUDA card):
     python3 chip_smoke.py
@@ -20,8 +28,10 @@ Usage (from the repository root, on a machine with one CUDA card):
 Every phase raises on failure, so the script exits non-zero; without a
 CUDA device it exits non-zero before printing any result.  The line before
 the last lists each kernel with its launches in the 2^14 runs of the main
-paths (``-R``, ``--fs`` and ``--phases`` at its modulus), its time beside the plain version's, a library call's and its
-bound; the last line of standard output is the result JSON.  Imports
+paths (``-R``, ``--fs`` and ``--phases`` at its modulus; for a range mode
+the 2^14 sharded proves, summed over the ranks), its time beside the
+plain version's, a library call's and its bound; the last line of
+standard output is the result JSON.  Imports
 nothing of JAX.
 """
 
@@ -34,6 +44,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -199,17 +210,12 @@ def _kernel_info(mod, q: int):
     return mod.KERNEL_BIG if is_big(q) else mod.KERNEL
 
 
-def _kernel_cases(p, seed: int):
-    """(kernel module, label, kernel fn, plain fn, Work) at the shapes of
-    instance ``p``, on inputs from a fixed numpy seed.  Small q: random
-    residues for Ajtai, random centred digits lifted mod q for the u1
-    B-term and the C/D sums.  Big q, the JAX package's convention there:
-    signed operands at their magnitude bounds, an Ajtai witness up to q/2
-    (the most the kernel takes, beyond the JAX package's int32 witness),
-    -2^31 among them (it reaches check 15 as the int32 wrap of an
-    oversized z), and digits up to +-b/2, the bounds present."""
+def _kernel_inputs(p, seed: int) -> SimpleNamespace:
+    """The commitment kernels' operands at the shapes of instance ``p``
+    from a fixed numpy seed (``_kernel_cases`` says which), the CRS, and
+    ``work``, the Work of one stream contraction."""
     from labrador_tpu_torch.crs import CRS
-    from labrador_tpu_torch.ops import ajtai_cuda, cd_cuda, ntt, u1_cuda
+    from labrador_tpu_torch.ops import ajtai_cuda, ntt
     from labrador_tpu_torch.ops.zq import is_big
     from labrador_tpu_torch.protocol import _tri_stream
 
@@ -259,8 +265,26 @@ def _kernel_cases(p, seed: int):
     t_dig = digits(p.b_1, (p.t_1, p.r, p.kappa, p.d))
     g_str = _tri_stream(digits(p.b_2, (p.t_2, p.r, p.r, p.d)), p)
     h_str = _tri_stream(digits(p.b_1, (p.t_1, p.r, p.r, p.d)), p)
-    n_tri = p.r * (p.r + 1) // 2
     aj_lp = ajtai_cuda.entry_limbs(p.q) * ajtai_cuda.witness_limbs(p.q)
+    return SimpleNamespace(crs=crs, w=w, w_max=w_max, t_dig=t_dig,
+                           g_str=g_str, h_str=h_str, work=work, aj_lp=aj_lp)
+
+
+def _kernel_cases(p, seed: int):
+    """(kernel module, label, kernel fn, plain fn, Work) at the shapes of
+    instance ``p``, on inputs from a fixed numpy seed.  Small q: random
+    residues for Ajtai, random centred digits lifted mod q for the u1
+    B-term and the C/D sums.  Big q, the JAX package's convention there:
+    signed operands at their magnitude bounds, an Ajtai witness up to q/2
+    (the most the kernel takes, beyond the JAX package's int32 witness),
+    -2^31 among them (it reaches check 15 as the int32 wrap of an
+    oversized z), and digits up to +-b/2, the bounds present."""
+    from labrador_tpu_torch.ops import ajtai_cuda, cd_cuda, u1_cuda
+
+    x = _kernel_inputs(p, seed)
+    crs, w, w_max, t_dig = x.crs, x.w, x.w_max, x.t_dig
+    g_str, h_str, work, aj_lp = x.g_str, x.h_str, x.work, x.aj_lp
+    n_tri = p.r * (p.r + 1) // 2
     return [
         (ajtai_cuda, "ajtai r_eff=r",
          lambda: ajtai_cuda.ajtai_commit(crs, w),
@@ -531,12 +555,14 @@ def phase_polymul() -> dict:
 
 
 def _kernels():
-    """Every kernel of the port, each mode of kernels 2-4 apart."""
+    """Every kernel of the port, each mode of kernels 2-4 apart (small q,
+    big q, and the range mode of each)."""
     from labrador_tpu_torch.ops import (ajtai_cuda, cd_cuda, polymul_cuda,
                                         u1_cuda)
-    return [polymul_cuda.KERNEL, ajtai_cuda.KERNEL, u1_cuda.KERNEL,
-            cd_cuda.KERNEL, ajtai_cuda.KERNEL_BIG, u1_cuda.KERNEL_BIG,
-            cd_cuda.KERNEL_BIG]
+    mods = (ajtai_cuda, u1_cuda, cd_cuda)
+    return ([polymul_cuda.KERNEL] + [m.KERNEL for m in mods]
+            + [m.KERNEL_BIG for m in mods] + [m.KERNEL_RANGE for m in mods]
+            + [m.KERNEL_RANGE_BIG for m in mods])
 
 
 def _reset_counts() -> None:
@@ -1321,10 +1347,352 @@ def phase_phases_real() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# multi-device: the kernels' range modes, then ranks sharing the card
+# ---------------------------------------------------------------------------
+
+N_SHARDS = 4
+RANGE_KERNELS = ("ajtai_commit_range", "u1_bterm_range", "cd_sum_range")
+RANGE_BIG_KERNELS = ("ajtai_commit_range_bigq", "u1_bterm_range_bigq",
+                     "cd_sum_range_bigq")
+UNRANGED_KERNELS = COMMITMENT_KERNELS + BIG_KERNELS
+CONFIG4 = dict(n=128, r=128, kappa=256)   # BASELINE.json config 4, big q
+WORLD = 4
+
+
+def _range_cases(p, seed: int, n: int):
+    """(kernel module, label, [(range kernel fn, its plain fn)] a shard,
+    compose (the shards' results -> the whole), unranged kernel fn, Work
+    of shard 0) of kernels 2-4 at the shapes of ``p``, cut into n shards
+    as ``protocol.AxisCtx`` cuts them, on ``_kernel_cases``'s inputs."""
+    from labrador_tpu_torch.ops import ajtai_cuda, cd_cuda, u1_cuda
+    from labrador_tpu_torch.protocol import AxisCtx, _stream_shard
+
+    x = _kernel_inputs(p, seed)
+    crs, w, t_dig, g_str, h_str = x.crs, x.w, x.t_dig, x.g_str, x.h_str
+    per = p.kappa // n
+
+    def cat(parts):
+        return torch.cat(parts, 1)
+
+    def summed(parts):
+        return sum(parts) % p.q
+
+    def stream_cuts(stream, t_used):
+        return [_stream_shard(stream.shape[0] * t_used, AxisCtx(None, n, i))
+                for i in range(n)]
+
+    def cd_case(label, stream, off, t_used, base):
+        cuts = stream_cuts(stream, t_used)
+        shards = [(lambda l0=l0, m=m: cd_cuda.cd_sum(crs, stream, off,
+                                                     t_used, base, l0, m),
+                   lambda l0=l0, m=m: cd_cuda.cd_sum_plain(crs, stream, off,
+                                                           t_used, l0, m))
+                  for l0, m in cuts]
+        return (cd_cuda, label, shards, summed,
+                lambda: cd_cuda.cd_sum(crs, stream, off, t_used, base),
+                x.work(p.kappa_2, cuts[0][1], 1, (base or p.b_1) // 2))
+
+    return [
+        (ajtai_cuda, "ajtai r_eff=r",
+         [(lambda i=i: ajtai_cuda.ajtai_commit(crs, w, i * per, per),
+           lambda i=i: ajtai_cuda.ajtai_commit_plain(crs, w, i * per, per))
+          for i in range(n)], cat, lambda: ajtai_cuda.ajtai_commit(crs, w),
+         x.work(per, p.n, p.r, x.w_max, x.aj_lp)),
+        (u1_cuda, "u1 B-term",
+         [(lambda i=i: u1_cuda.u1_bterm(crs, t_dig, i * per, per),
+           lambda i=i: u1_cuda.u1_bterm_plain(crs, t_dig, i * per, per))
+          for i in range(n)], summed, lambda: u1_cuda.u1_bterm(crs, t_dig),
+         x.work(p.kappa_1, p.r * p.t_1 * per, 1, p.b_1 // 2)),
+        cd_case("cd D-term (u2)", h_str, crs._off_d, p.t_1, 0),
+        cd_case("cd C-term (u1)", g_str, crs._off_c, p.t_2, p.b_2),
+    ]
+
+
+def phase_range_modes(stats: dict) -> None:
+    """The range modes of kernels 2-4 at the 2^14 shapes, at both moduli,
+    cut into N_SHARDS shards: every shard bit-equal to its plain version,
+    the shards concatenated (Ajtai) or summed mod q (u1, C/D) equal to
+    the unranged kernel; shard 0 timed beside the bound of its own work
+    (about the unsharded bound / N_SHARDS).  Records each range mode's
+    error, and the times and bound of its first case, in ``stats``."""
+    from labrador_tpu_torch.params import LabradorParams
+    from labrador_tpu_torch.ops.zq import is_big
+
+    for extra, tag in (({}, "2^14"), (BIG_Q, "2^14 big-q")):
+        p = LabradorParams(n=REAL["n"], r=REAL["r"],
+                           kappa_override=REAL["kappa"], **extra)
+        for mod, label, shards, compose, full, work in _range_cases(
+                p, 7, N_SHARDS):
+            err, parts = 0, []
+            for i, (kern, plain) in enumerate(shards):
+                got, want = kern(), plain()
+                _sync()
+                e = int(torch.max(torch.abs(got - want))) if got.numel() \
+                    else 0
+                if got.shape != want.shape or e != 0:
+                    raise AssertionError(f"{label} range {i}/{N_SHARDS} at "
+                                         f"{tag}: kernel != plain ({e})")
+                err = max(err, e)
+                parts.append(got)
+            if not torch.equal(compose(parts), full()):
+                raise AssertionError(f"{label} at {tag}: the {N_SHARDS} "
+                                     f"shards do not compose to the kernel")
+            ms = cuda_ms(shards[0][0], 10)
+            plain_ms = cuda_ms(shards[0][1], 1)
+            bound_ms, bound_by = work.bound()
+            log(f"range {label:16s} {tag:10s} {N_SHARDS} shards bit-equal "
+                f"(tolerance 0), composed == unranged; shard 0 "
+                f"{tuple(parts[0].shape)} kernel {ms:.4f} ms  plain "
+                f"{plain_ms:.4f} ms  {work.describe()}; at "
+                f"{bound_ms / ms:.1%} of the bound")
+            info = mod.KERNEL_RANGE_BIG if is_big(p.q) else mod.KERNEL_RANGE
+            st = stats.setdefault(info.name, {"max_abs_err": 0})
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            if "ms" not in st:
+                st.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=None)
+
+
+def _tamper_u1(proof, q: int):
+    """u_1[3, 5] + 1 (the tamper of tests/test_sharded.py)."""
+    u_1 = proof.u_1.clone()
+    u_1[3, 5] = (u_1[3, 5] + 1) % q
+    return proof.replace(u_1=u_1)
+
+
+# the sharded runs: (cell, label, n, r, kappa, big q, oracle, mesh)
+SHARDED_RUNS = (
+    [("config1", lab, 2, 2, 0, big, orc, (2, 2))
+     for lab, big, orc in (("small q", False, "interactive"),
+                           ("big q", True, "interactive"),
+                           ("--fs", False, "fs"),
+                           ("--fs --big-q", True, "fs"))]
+    + [("2^14", lab, REAL["n"], REAL["r"], REAL["kappa"], big, orc, (1, 4))
+       for lab, big, orc in (("small q", False, "interactive"),
+                             ("big q", True, "interactive"),
+                             ("--fs", False, "fs"),
+                             ("--fs --big-q", True, "fs"))]
+    + [("config4", "big q", CONFIG4["n"], CONFIG4["r"], CONFIG4["kappa"],
+        True, "interactive", (1, 2))])
+
+
+def _rank_sharded() -> dict:
+    """One rank of the world on the card: every run of SHARDED_RUNS on its
+    mesh (ranks beyond a mesh skip its runs), with this rank's launch
+    counts from 0 around each sharded prove, the transcripts' digests, the
+    prove time, the sharded verifier's reports on the valid and on a
+    tampered proof (interactive runs) and, for config 4, the peak device
+    memory of the rank; then each mesh's collective costs."""
+    import torch.distributed as dist
+
+    from labrador_tpu_torch import structs
+    from labrador_tpu_torch.cli import make_instance, make_params
+    from labrador_tpu_torch.parallel.mesh import make_mesh
+    from labrador_tpu_torch.parallel.sharded import (make_sharded_prover,
+                                                     make_sharded_verifier,
+                                                     stack, take)
+
+    meshes = {}
+    for run in SHARDED_RUNS:
+        if run[-1] not in meshes:
+            meshes[run[-1]] = make_mesh(*run[-1], device="cuda")
+    out = {"rank": dist.get_rank(), "runs": {}}
+    for cell, label, n, r, kappa, big, oracle, shape in SHARDED_RUNS:
+        mesh = meshes[shape]
+        if not mesh.member:
+            continue
+        if cell == "config4":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        p = make_params(n, r, kappa, False, big)
+        mode = "exact" if big else "reference"
+        # instance b of the batch from seed 42 + b: the dp blocks differ
+        insts = [make_instance(p, 42 + b, mesh.device)
+                 for b in range(mesh.n_dp)]
+        st, crs = insts[0][1], insts[0][2]
+        fn = make_sharded_prover(p, mesh, mode, oracle)
+        _reset_counts()
+        ms, tr = _host_ms(lambda: fn(torch.stack([i[0] for i in insts]),
+                                     stack([i[1] for i in insts]),
+                                     [i[2].key for i in insts],
+                                     [i[3] for i in insts]), 1)
+        res = {"counts": _counts(), "prove_ms": ms,
+               "digests": [structs.transcript_sha256(take(tr, b), p.q)
+                           for b in range(mesh.n_dp)]}
+        if oracle == "interactive" and cell != "config1":
+            vfn = make_sharded_verifier(p, mesh, mode)
+            proof = take(tr, 0)
+            res["verify_ms"], res["report"] = _host_ms(
+                lambda: vfn(st, proof, crs.key), 1)
+            res["report_tampered"] = vfn(st, _tamper_u1(proof, p.q),
+                                         crs.key)
+        if cell == "config4":
+            res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del insts, st, crs, tr
+        out["runs"][(cell, label)] = res
+    out["collectives"] = {f"{s[0]}x{s[1]}": m.stats.as_dict()
+                          for s, m in meshes.items() if m.member}
+    return out
+
+
+def _sharded_references(card_gb: float) -> dict:
+    """The single-rank runs of each SHARDED_RUNS cell the ranks must
+    equal, one a batch instance (seed 42 + b): at config 1, instance 0's
+    golden digest and a prove of instance 1 on one rank here; at 2^14 and
+    config 4, a prove on one rank (``prover.prove`` / ``prove_fs``), its
+    digest and time, and verify_report on it and on the tampered proof.
+    Config 4's single-rank peak memory is measured first and two ranks'
+    are reckoned against the card."""
+    from labrador_tpu_torch import prover, structs, verifier
+    from labrador_tpu_torch.cli import make_instance, make_params
+
+    golden = {"small q": json.loads(GOLDEN.read_text())["transcript_sha256"],
+              "big q": json.loads(GOLDEN_BIG.read_text())["base"][
+                  "transcript_sha256"]}
+    fs = json.loads(GOLDEN_FS.read_text())
+    golden["--fs"] = fs["small_q"]["transcript_sha256"]
+    golden["--fs --big-q"] = fs["big_q"]["transcript_sha256"]
+    refs = {}
+    for cell, label, n, r, kappa, big, oracle, (n_dp, _) in SHARDED_RUNS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        p = make_params(n, r, kappa, False, big)
+        mode = "exact" if big else "reference"
+        ref = {"digests": []}
+        for b in range(n_dp):
+            if cell == "config1" and b == 0:
+                ref["digests"].append(golden[label])
+                continue
+            w, st, crs, kv = make_instance(p, 42 + b, "cuda")
+            if oracle == "fs":
+                ms, proof = _host_ms(lambda: prover.prove_fs(p, w, st, crs,
+                                                             mode), 1)
+            else:
+                ms, proof = _host_ms(lambda: prover.prove(p, w, st, crs, kv,
+                                                          mode), 1)
+            ref["digests"].append(structs.transcript_sha256(proof, p.q))
+            if cell != "config1":
+                ref.update(prove_ms=ms,
+                           peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            if oracle == "interactive" and cell != "config1":
+                ref["report"] = verifier.verify_report(p, st, proof, crs,
+                                                       mode)
+                ref["report_tampered"] = verifier.verify_report(
+                    p, st, _tamper_u1(proof, p.q), crs, mode)
+                if not all(ref["report"].values()):
+                    raise AssertionError(f"{cell} {label}: the single-rank "
+                                         f"proof does not verify: "
+                                         f"{ref['report']}")
+            del w, st, proof
+        if len(set(ref["digests"])) != n_dp:
+            raise AssertionError(f"{cell} {label}: the batch's instances "
+                                 f"give equal transcripts")
+        refs[(cell, label)] = ref
+        if cell == "config4":
+            need = 2 * ref["peak_gb"]
+            log(f"config4 memory reckoning: single-rank prove peak "
+                f"{ref['peak_gb']:.2f} GB; 2 ranks on one card need about "
+                f"{need:.2f} GB of the card's {card_gb:.2f} GB (plus a CUDA "
+                f"context a process)")
+            if need > 0.9 * card_gb:
+                raise AssertionError("config4: two ranks do not fit the card")
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _check_rank_run(key, res: dict, ref: dict, rank: int) -> None:
+    cell, label = key
+    where = f"{cell} {label} rank {rank}"
+    if res["digests"] != ref["digests"]:
+        raise AssertionError(f"{where}: sharded transcripts {res['digests']} "
+                             f"!= single-rank {ref['digests']}")
+    big = "big" in label or cell == "config4"
+    want = RANGE_BIG_KERNELS if big else RANGE_KERNELS
+    _require_launched(res["counts"], want, where)
+    unranged = [k for k in UNRANGED_KERNELS if res["counts"][k]]
+    other = [k for k in (RANGE_KERNELS if big else RANGE_BIG_KERNELS)
+             if res["counts"][k]]
+    if unranged or other:
+        raise AssertionError(f"{where}: kernels {unranged + other} launched "
+                             f"outside the range mode of the run's modulus")
+    if "report" in res:
+        if res["report"] != ref["report"] or not res["report"]["all"]:
+            raise AssertionError(f"{where}: sharded report {res['report']} "
+                                 f"!= single-rank {ref['report']}")
+        bad = res["report_tampered"]
+        if bad != ref["report_tampered"] or bad["c19_u1"] or bad["all"] \
+                or not bad["c20_u2"]:
+            raise AssertionError(f"{where}: tampered u_1 report {bad} (single"
+                                 f"-rank {ref['report_tampered']})")
+
+
+def phase_sharded(card: str) -> dict:
+    """Ranks sharing cuda:0 over gloo (NCCL refuses two ranks on one
+    device): a world of WORLD spawned processes runs SHARDED_RUNS, config
+    1 on a dp 2 x rows 2 mesh (a batch of two instances) against the JAX
+    golden digest and a single-rank run, 2^14 on dp 1 x rows 4 and config 4
+    on dp 1 x rows 2 against single-rank runs on the card; every rank's counts show the range modes of the run's modulus,
+    and no other commitment kernel.  Shows that the range modes and the
+    collectives are exact on the card at full width, nothing of scaling.
+    Returns the range modes' launches in the 2^14 runs, summed over the
+    ranks, for the kernels line."""
+    from labrador_tpu_torch.ops import cuda_lib
+    from labrador_tpu_torch.parallel.multihost import spawn_local
+
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    refs = _sharded_references(card_gb)
+    cuda_lib.load()              # built: the ranks load it, none rebuilds
+    t0 = time.perf_counter()
+    ranks = spawn_local(_rank_sharded, WORLD, threads=2,
+                        timeout_s=900)
+    world_s = time.perf_counter() - t0
+    launches: dict = {}
+    for out in ranks:
+        for key, res in out["runs"].items():
+            _check_rank_run(key, res, refs[key], out["rank"])
+            if key[0] == "2^14":
+                _add_counts(launches, {k: v for k, v in res["counts"].items()
+                                       if k in RANGE_KERNELS
+                                       + RANGE_BIG_KERNELS})
+    for cell, label, *_, shape in SHARDED_RUNS:
+        key = (cell, label)
+        per = [o["runs"][key] for o in ranks if key in o["runs"]]
+        ref = refs[key]
+        ms = ", ".join(f"{r['prove_ms']:.2f}" for r in per)
+        want = ("JAX golden, single-rank" if cell == "config1"
+                else "single-rank")
+        digests = ", ".join(d[:16] + ".." for d in ref["digests"])
+        line = (f"sharded {cell} {label} (dp {shape[0]} x rows {shape[1]}, "
+                f"ranks share one card over gloo): transcripts == {want} "
+                f"{digests}; prove ms by rank {ms} (first run, host clock "
+                f"after sync)")
+        if "prove_ms" in ref:
+            line += f"; single-rank prove {ref['prove_ms']:.2f} ms"
+        if "report" in per[0]:
+            line += (f"; sharded verify {per[0]['verify_ms']:.2f} ms, report "
+                     f"== single-rank, tampered u_1 fails c19 alone")
+        if "peak_gb" in per[0]:
+            peaks = ", ".join(f"{r['peak_gb']:.2f}" for r in per)
+            line += (f"; peak device memory by rank {peaks} GB "
+                     f"(single-rank {ref['peak_gb']:.2f} GB)")
+        launched = {k: v for k, v in per[0]["counts"].items() if v}
+        log(line + f"; launches rank 0 {launched}")
+    for out in ranks:
+        log(f"sharded collectives rank {out['rank']}: "
+            f"{json.dumps(out['collectives'])}")
+    log(f"sharded: world of {WORLD} ranks on {card}: {world_s:.2f} s "
+        f"(process start, CUDA init and every run); range-mode launches in "
+        f"the 2^14 runs {launches}")
+    return launches
+
+
 def main() -> int:
-    phase_device()
+    t0 = time.perf_counter()
+    card = phase_device()
     phase_build()
     stats = phase_kernels()
+    phase_range_modes(stats)
     stats["negacyclic_polymul"] = phase_polymul()
     phase_jl_projection()
     phase_config1()
@@ -1342,6 +1710,9 @@ def main() -> int:
     _add_counts(launches, phase_fs_real(big_q=False))
     _add_counts(launches, phase_fs_real(big_q=True))
     _add_counts(launches, phase_phases_real())
+    _add_counts(launches, phase_sharded(card))
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.2f} s "
+        f"on {card}, the kernels' build included")
     rows = []
     for k in _kernels():
         st = stats[k.name]

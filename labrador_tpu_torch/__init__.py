@@ -11,7 +11,8 @@ The port covers the interactive and the Fiat-Shamir mode, phased and
 checkpointed proving, and recursion (``recursion.fold``) at small q (q <=
 ops.modmath.P_MAX) and at the 2^32-scale modulus (2^32 < q < 2^33, ``cli
 --big-q``); the commitment kernels have a mode for each.  Multi-device
-sharding is not ported.  The package imports nothing of JAX or of
+proving and verification over a (dp, rows) mesh of ``torch.distributed``
+ranks live in ``parallel/``.  The package imports nothing of JAX or of
 ``labrador_tpu``.
 """
 

@@ -98,6 +98,16 @@ def make_params(n: int, r: int, kappa: int = 0, recursion: bool = False,
                           **({"q_start": BIG_Q_START} if big_q else {}))
 
 
+def make_instance(p: LabradorParams, seed: int, device="cuda"):
+    """The CLI's instance of ``p`` from ``seed``, as the JAX CLI makes it:
+    (witness, state, CRS, verifier key)."""
+    kw, ks, kv = keys.split(keys.key(seed), 3)
+    witness = sampling.generate_witness(kw, p, device)
+    crs = CRS.create(p, seed=seed * CRS_SEED_MULT % 2**64)
+    state = structs.generate_state(ks, witness, p)
+    return witness, state, crs, kv
+
+
 def run_flow(n: int = 2, r: int = 2, kappa: int = 0, seed: int = 42,
              device="cuda", verbose: bool = False,
              recursion: bool = False, big_q: bool = False, fs: bool = False,
@@ -119,10 +129,7 @@ def run_flow(n: int = 2, r: int = 2, kappa: int = 0, seed: int = 42,
         print_constants(p)
         print(f"commitment kernels: {prover.resolve_backend(device)}")
         print("Generating Witness Matrix")
-    kw, ks, kv = keys.split(keys.key(seed), 3)
-    witness = sampling.generate_witness(kw, p, device)
-    crs = CRS.create(p, seed=seed * CRS_SEED_MULT % 2**64)
-    state = structs.generate_state(ks, witness, p)
+    witness, state, crs, kv = make_instance(p, seed, device)
     if verbose:
         print("Generating proof..")
     timer = None

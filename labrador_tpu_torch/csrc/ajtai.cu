@@ -6,6 +6,10 @@
 // Computes, for every witness vector j < r_eff and row < kappa,
 //     t[j][row] = sum_{l < n} A[row][l] (*) s[j][l]   mod q,
 // A[row][l][c] at CRS offset row * n * d + l * d + c (structs.rs:55-72).
+// Range mode: the rows row0 .. row0 + rows - 1 of A only (one shard of
+// the kappa axis, the rows of a (dp, rows) mesh; out (r_eff, rows, d)),
+// the TPU's per-device A row block of the JAX package's sharded Ajtai;
+// row0 = 0, rows = kappa is the whole commitment.
 //
 // One GEMM per block, with many right-hand sides:
 //     t^T (64 r_eff x kappa) = S (64 r_eff x 64 n) . A^T (64 n x kappa),
@@ -184,17 +188,17 @@ struct AjtaiSmem {
   }
 };
 
-// part[s][j][row][k] = (sum over split s of A[row][l] (*) s[j][l])[k]
-// mod q.  s: (nrhs, L, D) residues in [0, q) or signed values of magnitude
+// part[s][j][row][k] = (sum over split s of A[row0 + row][l] (*)
+// s[j][l])[k] mod q, row < rows.  s: (nrhs, L, D) residues in [0, q) or signed values of magnitude
 // at most q/2 (centred alike); grid (splits, row blocks, rhs groups); a
 // block of R_T * G * (4 / MT) * LG warps.
 template <bool BIG>
 __global__ void __launch_bounds__(AjtaiMode<BIG>::WARPS * 32,
                                   AjtaiMode<BIG>::MIN_BLOCKS)
 ajtai_mma_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
-                 int nrhs, int L, int rows, int64_t q, uint64_t barrett_m,
-                 uint32_t k0, uint32_t k1, int R_T, int G, int LG,
-                 int l_per_split) {
+                 int nrhs, int L, int rows, int row0, int64_t q,
+                 uint64_t barrett_m, uint32_t k0, uint32_t k1, int R_T, int G,
+                 int LG, int l_per_split) {
   using M = AjtaiMode<BIG>;
   constexpr int EL = M::EL, DL = M::DL, MT = M::MT, LC = M::LC;
   constexpr int MS = 4 / MT;             // warps per (row tile, vector)
@@ -247,7 +251,7 @@ ajtai_mma_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
     }
     // 2. the CRS entries of the block's rows, each once, as B fragments:
     // task (tile, l, half h, register r, lane) is the 4 entries of that
-    // lane's register b_r, row row0 + g, coefficients 32 h + 16 r + 4 t ..
+    // lane's register b_r, tile row g, coefficients 32 h + 16 r + 4 t ..
     // + 3 (mma_stream.cuh's layout); half a fragment a task, so that a
     // short chunk still gives every thread a task
     for (int task = threadIdx.x; task < R_T * LC * 128; task += nthreads) {
@@ -255,7 +259,7 @@ ajtai_mma_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
       const int l = (task >> 7) % LC, tile = (task >> 7) / LC;
       if (l >= nl) continue;
       const int row = row_base + tile * 8 + (tl >> 2);
-      const uint64_t base = static_cast<uint64_t>(row) * row_stride +
+      const uint64_t base = static_cast<uint64_t>(row0 + row) * row_stride +
                             static_cast<uint64_t>(l0 + l) * D +
                             32 * h + 16 * r + 4 * (tl & 3);
       uint64_t e4[4];
@@ -403,9 +407,9 @@ ajtai_mma_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
 
 template <bool BIG>
 cudaError_t launch_ajtai(const int64_t* dig, int64_t* part, int nrhs, int L,
-                         int rows, int64_t q, uint64_t barrett_m, uint32_t k0,
-                         uint32_t k1, int R_T, int G, int LG, int splits,
-                         int l_per_split, cudaStream_t st) {
+                         int rows, int row0, int64_t q, uint64_t barrett_m,
+                         uint32_t k0, uint32_t k1, int R_T, int G, int LG,
+                         int splits, int l_per_split, cudaStream_t st) {
   using M = AjtaiMode<BIG>;
   const int warps = R_T * G * (4 / M::MT) * LG;
   if (R_T < 1 || G < 1 || LG < 1 || warps > M::WARPS || splits < 1 ||
@@ -424,7 +428,7 @@ cudaError_t launch_ajtai(const int64_t* dig, int64_t* part, int nrhs, int L,
   const dim3 grid(splits, (rows + 8 * R_T - 1) / (8 * R_T),
                   (nrhs + G - 1) / G);
   ajtai_mma_kernel<BIG><<<grid, 32 * warps, smem, st>>>(
-      dig, part, nrhs, L, rows, q, barrett_m, k0, k1, R_T, G, LG,
+      dig, part, nrhs, L, rows, row0, q, barrett_m, k0, k1, R_T, G, LG,
       l_per_split);
   return cudaGetLastError();
 }
@@ -432,23 +436,24 @@ cudaError_t launch_ajtai(const int64_t* dig, int64_t* part, int nrhs, int L,
 }  // namespace
 
 // The kernel in the mode of q, then the split reduction into out (r_eff,
-// kappa, D).  Returns the first launch error, or cudaErrorInvalidValue for
-// a launch shape the kernel does not take (the wrapper's launch_shape
-// gives one it takes).
+// kappa, D): the rows row0 .. row0 + kappa - 1 of A (kappa the rows of
+// this call, all of A's at row0 = 0).  Returns the first launch error, or
+// cudaErrorInvalidValue for a launch shape the kernel does not take (the
+// wrapper's launch_shape gives one it takes).
 extern "C" int ajtai_commit_launch(const int64_t* s, int64_t* part,
                                    int64_t* out, int r_eff, int n, int kappa,
-                                   int64_t q, uint64_t barrett_m,
+                                   int row0, int64_t q, uint64_t barrett_m,
                                    uint32_t k0, uint32_t k1, int row_tiles,
                                    int rhs_group, int l_groups, int splits,
                                    int l_per_split, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       q <= SMALL_Q_MAX
-          ? launch_ajtai<false>(s, part, r_eff, n, kappa, q, barrett_m, k0,
-                                k1, row_tiles, rhs_group, l_groups, splits,
-                                l_per_split, st)
-          : launch_ajtai<true>(s, part, r_eff, n, kappa, q, barrett_m, k0,
-                               k1, row_tiles, rhs_group, l_groups, splits,
+          ? launch_ajtai<false>(s, part, r_eff, n, kappa, row0, q, barrett_m,
+                                k0, k1, row_tiles, rhs_group, l_groups,
+                                splits, l_per_split, st)
+          : launch_ajtai<true>(s, part, r_eff, n, kappa, row0, q, barrett_m,
+                               k0, k1, row_tiles, rhs_group, l_groups, splits,
                                l_per_split, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t total = static_cast<int64_t>(r_eff) * kappa * D;

@@ -16,6 +16,11 @@
 // on the H100 is Threefry and the per-entry work on the CUDA cores.  At
 // kappa_2 = 16 (the folded instances) a block's 8 warps are 2 row tiles
 // times 4 l-groups over L ~ 10^5 ring elements.
+// Range mode: the stream entries l0 .. l0 + L - 1 only (one shard of the
+// (tri, k) stream on a (dp, rows) mesh, as the JAX package's
+// _cd_sharded_partial cuts it), lin = l0 + l for the l-th local digit;
+// the result is this shard's partial.  l0 = 0 over the whole stream is
+// the whole sum.
 // Shape limits (checked by ops/cd_cuda.py): d = 64, q <= 32513 or
 // 2^32 < q < 2^33, L and kappa_2 * d below 2^31.
 #include "mma_stream.cuh"
@@ -27,8 +32,11 @@ struct CdOffset {
   int t_used;
   int t1;
   int kappa2;
+  int l0;       // the stream index of the first local digit
   __device__ uint64_t stream(int l) const {
-    const uint64_t oc = static_cast<uint64_t>(l / t_used) * t1 + l % t_used;
+    const int lin = l0 + l;
+    const uint64_t oc =
+        static_cast<uint64_t>(lin / t_used) * t1 + lin % t_used;
     return base + oc * static_cast<uint64_t>(kappa2) * D;
   }
   __device__ uint64_t row(int r) const {
@@ -39,13 +47,13 @@ struct CdOffset {
 }  // namespace
 
 extern "C" int cd_sum_launch(const int64_t* dig, int64_t* part, int64_t* out,
-                             int* bad, int L, int t_used, int t1, int kappa2,
-                             int64_t q,
+                             int* bad, int L, int l0, int t_used, int t1,
+                             int kappa2, int64_t q,
                              uint64_t barrett_m, uint64_t base, uint32_t k0,
                              uint32_t k1, int digit_limbs, int tiles,
                              int groups, int splits, int l_per_split,
                              void* stream) {
-  const CdOffset off{base, t_used, t1, kappa2};
+  const CdOffset off{base, t_used, t1, kappa2, l0};
   return static_cast<int>(launch_mma_stream(
       dig, part, out, bad, L, kappa2, q, barrett_m, k0, k1, off, digit_limbs,
       tiles, groups, splits, l_per_split, static_cast<cudaStream_t>(stream)));

@@ -10,8 +10,11 @@ takes the products on int8 tensor cores: CRS entries as
 ``entry_limbs(q)`` unsigned 8-bit limbs, the centred witness as
 ``witness_limbs(q)`` signed ones, each entry generated once per block and
 applied to the block's ``rhs_group`` witness vectors (``launch_shape``).
-The wrapper launches the kernel for CUDA tensors and takes the plain
-version only for CPU tensors.
+The range mode (``rows`` given) computes the rows row0 .. row0 + rows - 1
+of A only, one shard of the kappa axis on a (dp, rows) mesh; its launches
+count in ``KERNEL_RANGE`` / ``KERNEL_RANGE_BIG``.  The wrapper launches
+the kernel for CUDA tensors and takes the plain version only for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -31,6 +34,14 @@ KERNEL = cuda_lib.KernelInfo(
     replaces="labrador_tpu/ops/ajtai_pallas.py:234")
 KERNEL_BIG = cuda_lib.KernelInfo(
     name="ajtai_commit_bigq",
+    source="labrador_tpu_torch/csrc/ajtai.cu",
+    replaces="labrador_tpu/ops/ajtai_pallas.py:173")
+KERNEL_RANGE = cuda_lib.KernelInfo(
+    name="ajtai_commit_range",
+    source="labrador_tpu_torch/csrc/ajtai.cu",
+    replaces="labrador_tpu/ops/ajtai_pallas.py:234")
+KERNEL_RANGE_BIG = cuda_lib.KernelInfo(
+    name="ajtai_commit_range_bigq",
     source="labrador_tpu_torch/csrc/ajtai.cu",
     replaces="labrador_tpu/ops/ajtai_pallas.py:173")
 
@@ -115,51 +126,73 @@ def _splits(blocks: int, chunks: int, resident: int) -> tuple[int, int]:
     return best[1], best[2]
 
 
-def ajtai_commit(crs, witness: torch.Tensor) -> torch.Tensor:
+def ajtai_commit(crs, witness: torch.Tensor, row0: int = 0,
+                 rows: int | None = None) -> torch.Tensor:
     """t (r_eff, kappa, d) mod q for witness (r_eff, n, d) residues in
     [0, q) or signed values of magnitude at most q/2 (the big-q witness
     convention); r_eff is the witness's own leading dim (r in proving, 1 for
-    the verifier's check 15)."""
+    the verifier's check 15).  With ``rows`` (the range mode): the rows
+    row0 .. row0 + rows - 1 of t only, (r_eff, rows, d)."""
     if witness.is_cuda:
-        return _launch(crs, witness)
+        return _launch(crs, witness, row0, rows)
     if witness.device.type == "cpu":
-        return ajtai_commit_plain(crs, witness)
+        return ajtai_commit_plain(crs, witness, row0, rows)
     raise ValueError(f"no Ajtai kernel for device {witness.device}")
 
 
-def ajtai_commit_plain(crs, witness: torch.Tensor) -> torch.Tensor:
+def _row_range(p, row0: int, rows: int | None) -> int:
+    """The rows of a call (kappa without a range); raises on a range
+    outside A."""
+    if rows is None:
+        return p.kappa
+    if row0 < 0 or rows < 1 or row0 + rows > p.kappa:
+        raise ValueError(f"rows {row0} .. {row0 + rows} outside A's "
+                         f"{p.kappa}")
+    return rows
+
+
+def ajtai_commit_plain(crs, witness: torch.Tensor, row0: int = 0,
+                       rows: int | None = None) -> torch.Tensor:
     p = crs.params
     nd = p.n * p.d
+    rows = _row_range(p, row0, rows)
 
     def draw(l0: int, l1: int) -> torch.Tensor:
-        return crs._expand_dyn(l0 * p.d, 0, 0, (p.kappa, l1 - l0, p.d),
-                               (nd, p.d, 1), device=witness.device)
+        return crs._expand_dyn(row0 * nd + l0 * p.d, 0, 0,
+                               (rows, l1 - l0, p.d), (nd, p.d, 1),
+                               device=witness.device)
 
-    return ring_stream_plain(draw, witness, p.kappa, p.q)
+    return ring_stream_plain(draw, witness, rows, p.q)
 
 
-def _launch(crs, witness: torch.Tensor) -> torch.Tensor:
+def _launch(crs, witness: torch.Tensor, row0: int,
+            rows: int | None) -> torch.Tensor:
     p = crs.params
     check_q(p.q, p.d)
+    ranged = rows is not None
+    rows = _row_range(p, row0, rows)
     r_eff = witness.shape[0]
     cuda_lib.require_cuda_operand(witness, "witness", (r_eff, p.n, p.d))
     check_big_operand(witness, p.q, "witness")
     if r_eff * p.kappa * p.d >= 1 << 31 or p.n * p.d >= 1 << 31:
         raise ValueError("Ajtai shape beyond the kernel's int32 indexing")
-    out = torch.empty((r_eff, p.kappa, p.d), dtype=torch.int64,
+    out = torch.empty((r_eff, rows, p.d), dtype=torch.int64,
                       device=witness.device)
     if r_eff == 0:
         return out
     row_tiles, group, l_groups, splits, l_per_split = launch_shape(
-        p.kappa, r_eff, p.n, p.q)
-    part = torch.empty((splits, r_eff, p.kappa, p.d), dtype=torch.int64,
+        rows, r_eff, p.n, p.q)
+    part = torch.empty((splits, r_eff, rows, p.d), dtype=torch.int64,
                        device=witness.device)
     lib = cuda_lib.load().lib
     err = lib.ajtai_commit_launch(
         witness.data_ptr(), part.data_ptr(), out.data_ptr(), r_eff, p.n,
-        p.kappa, p.q, barrett_m(p.q), crs.key[0], crs.key[1], row_tiles,
+        rows, row0, p.q, barrett_m(p.q), crs.key[0], crs.key[1], row_tiles,
         group, l_groups, splits, l_per_split,
         cuda_lib.stream_ptr(witness.device))
     cuda_lib.check(err)
-    (KERNEL_BIG if is_big(p.q) else KERNEL).launches += 1
+    if ranged:
+        (KERNEL_RANGE_BIG if is_big(p.q) else KERNEL_RANGE).launches += 1
+    else:
+        (KERNEL_BIG if is_big(p.q) else KERNEL).launches += 1
     return out

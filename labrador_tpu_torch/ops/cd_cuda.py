@@ -13,6 +13,10 @@ The kernel is the u1 B-term's int8 tensor-core stream kernel
 (``csrc/mma_stream.cuh``) with the C/D offset: ``digit_limbs`` of the
 digit base, as the Pallas kernel counts them, the same in-kernel digit
 check, raised after the launch, and launch shape (``ops/u1_cuda.py``).
+The range mode (``length`` given) sums over the stream entries l0 .. l0 +
+length - 1 only, one shard of the (tri, k) stream on a (dp, rows) mesh,
+and returns that shard's partial (zeros for an empty range, with no
+launch); its launches count in ``KERNEL_RANGE`` / ``KERNEL_RANGE_BIG``.
 """
 
 from __future__ import annotations
@@ -33,30 +37,54 @@ KERNEL_BIG = cuda_lib.KernelInfo(
     name="cd_sum_bigq",
     source="labrador_tpu_torch/csrc/cd.cu",
     replaces="labrador_tpu/ops/cd_pallas.py:128")
+KERNEL_RANGE = cuda_lib.KernelInfo(
+    name="cd_sum_range",
+    source="labrador_tpu_torch/csrc/cd.cu",
+    replaces="labrador_tpu/ops/cd_pallas.py:183")
+KERNEL_RANGE_BIG = cuda_lib.KernelInfo(
+    name="cd_sum_range_bigq",
+    source="labrador_tpu_torch/csrc/cd.cu",
+    replaces="labrador_tpu/ops/cd_pallas.py:128")
 
 
 def cd_sum(crs, dig_stream: torch.Tensor, base_off: int, t_used: int,
-           digit_base: int = 0) -> torch.Tensor:
+           digit_base: int = 0, l0: int = 0,
+           length: int | None = None) -> torch.Tensor:
     """(kappa_2, d) mod q for dig_stream (n_tri, t_used, d) digits
     (residues mod q, or signed at big q); base_off is ``crs._off_c`` or
     ``crs._off_d``; digit_base bounds the digits, |digit| <= digit_base //
     2 (b_2 for C; the default 0 means b_1, the D-term's, as in the Pallas
-    kernel)."""
+    kernel).  With ``length`` (the range mode): the partial over the
+    stream entries lin = l0 .. l0 + length - 1 (lin = tri * t_used + k)."""
     if dig_stream.is_cuda:
-        return _launch(crs, dig_stream, base_off, t_used, digit_base)
+        return _launch(crs, dig_stream, base_off, t_used, digit_base, l0,
+                       length)
     if dig_stream.device.type == "cpu":
-        return cd_sum_plain(crs, dig_stream, base_off, t_used)
+        return cd_sum_plain(crs, dig_stream, base_off, t_used, l0, length)
     raise ValueError(f"no C/D kernel for device {dig_stream.device}")
 
 
-def cd_sum_plain(crs, dig_stream: torch.Tensor, base_off: int,
-                 t_used: int) -> torch.Tensor:
-    p = crs.params
-    n_tri = dig_stream.shape[0]
-    dev = dig_stream.device
+def _local_digits(dig_stream: torch.Tensor, l0: int,
+                  length: int | None) -> torch.Tensor:
+    """(length, d): the stream entries l0 .. l0 + length - 1 (all without
+    a range); raises on a range outside the stream."""
+    flat = dig_stream.reshape(-1, dig_stream.shape[-1])
+    if length is None:
+        return flat
+    if l0 < 0 or length < 0 or l0 + length > flat.shape[0]:
+        raise ValueError(f"stream entries {l0} .. {l0 + length} outside "
+                         f"the {flat.shape[0]} of the stream")
+    return flat[l0:l0 + length]
 
-    def draw(l0: int, l1: int) -> torch.Tensor:
-        lin = torch.arange(l0, l1, device=dev)
+
+def cd_sum_plain(crs, dig_stream: torch.Tensor, base_off: int, t_used: int,
+                 l0: int = 0, length: int | None = None) -> torch.Tensor:
+    p = crs.params
+    dev = dig_stream.device
+    dig = _local_digits(dig_stream, l0, length)
+
+    def draw(la: int, lb: int) -> torch.Tensor:
+        lin = torch.arange(l0 + la, l0 + lb, device=dev)
         oc = (lin // t_used) * p.t_1 + lin % t_used
         row = torch.arange(p.kappa_2, device=dev)
         c = torch.arange(p.d, device=dev)
@@ -64,8 +92,9 @@ def cd_sum_plain(crs, dig_stream: torch.Tensor, base_off: int,
                 + row[:, None, None] * p.d + c[None, None, :])
         return crs.draw(offs)
 
-    dig = dig_stream.reshape(1, n_tri * t_used, p.d)
-    return ring_stream_plain(draw, dig, p.kappa_2, p.q)[0]
+    if not dig.shape[0]:
+        return torch.zeros((p.kappa_2, p.d), dtype=torch.int64, device=dev)
+    return ring_stream_plain(draw, dig[None], p.kappa_2, p.q)[0]
 
 
 def stream_digit_limbs(crs, digit_base: int = 0) -> int:
@@ -79,16 +108,20 @@ def stream_digit_limbs(crs, digit_base: int = 0) -> int:
 
 
 def _launch(crs, dig_stream: torch.Tensor, base_off: int, t_used: int,
-            digit_base: int) -> torch.Tensor:
+            digit_base: int, l0: int, length: int | None) -> torch.Tensor:
     p = crs.params
     check_q(p.q, p.d)
     n_tri = dig_stream.shape[0]
     cuda_lib.require_cuda_operand(dig_stream, "dig_stream",
                                   (n_tri, t_used, p.d))
     n_limbs = stream_digit_limbs(crs, digit_base)
-    L = n_tri * t_used
-    if L >= 1 << 31 or p.kappa_2 * p.d >= 1 << 31:
+    if n_tri * t_used >= 1 << 31 or p.kappa_2 * p.d >= 1 << 31:
         raise ValueError("C/D shape beyond the kernel's int32 indexing")
+    dig = _local_digits(dig_stream, l0, length)
+    L = dig.shape[0]
+    if not L:
+        return torch.zeros((p.kappa_2, p.d), dtype=torch.int64,
+                           device=dig.device)
     tiles, groups, splits, l_per_split = launch_shape(p.kappa_2, L)
     part = torch.empty((splits, p.kappa_2, p.d), dtype=torch.int64,
                        device=dig_stream.device)
@@ -97,12 +130,14 @@ def _launch(crs, dig_stream: torch.Tensor, base_off: int, t_used: int,
     bad = torch.empty((1,), dtype=torch.int32, device=dig_stream.device)
     lib = cuda_lib.load().lib
     err = lib.cd_sum_launch(
-        dig_stream.data_ptr(), part.data_ptr(), out.data_ptr(),
-        bad.data_ptr(), L, t_used,
-        p.t_1, p.kappa_2, p.q, barrett_m(p.q), base_off, crs.key[0],
-        crs.key[1], n_limbs, tiles, groups, splits, l_per_split,
+        dig.data_ptr(), part.data_ptr(), out.data_ptr(), bad.data_ptr(), L,
+        l0, t_used, p.t_1, p.kappa_2, p.q, barrett_m(p.q), base_off,
+        crs.key[0], crs.key[1], n_limbs, tiles, groups, splits, l_per_split,
         cuda_lib.stream_ptr(dig_stream.device))
     cuda_lib.check(err)
-    (KERNEL_BIG if is_big(p.q) else KERNEL).launches += 1
-    raise_if_flagged(bad, dig_stream, p.q, n_limbs)
+    if length is not None:
+        (KERNEL_RANGE_BIG if is_big(p.q) else KERNEL_RANGE).launches += 1
+    else:
+        (KERNEL_BIG if is_big(p.q) else KERNEL).launches += 1
+    raise_if_flagged(bad, dig, p.q, n_limbs)
     return out

@@ -36,12 +36,12 @@ _U64 = ctypes.c_uint64
 # C entry points (csrc/*.cu) and their argument types; each returns the
 # cudaError_t of its launches.
 _SIGNATURES = {
-    "ajtai_commit_launch": (_P, _P, _P, _I, _I, _I, _I64, _U64, _U32, _U32, _I,
-                            _I, _I, _I, _I, _P),
-    "u1_bterm_launch": (_P, _P, _P, _P, _I, _I, _I, _I64, _U64, _U64, _U32,
-                        _U32, _I, _I, _I, _I, _I, _P),
-    "cd_sum_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I64, _U64, _U64, _U32,
-                      _U32, _I, _I, _I, _I, _I, _P),
+    "ajtai_commit_launch": (_P, _P, _P, _I, _I, _I, _I, _I64, _U64, _U32,
+                            _U32, _I, _I, _I, _I, _I, _P),
+    "u1_bterm_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I64, _U64, _U64,
+                        _U32, _U32, _I, _I, _I, _I, _I, _P),
+    "cd_sum_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I64, _U64, _U64,
+                      _U32, _U32, _I, _I, _I, _I, _I, _P),
     "polymul_coef_launch": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
                             _I64, _I, _U32, _U32, _U64, _P),
     "polymul_bhat_launch": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I,

@@ -18,6 +18,10 @@ flag; the wrapper reads the flag after the launch (one device sync) and
 raises (``raise_if_flagged``).  The kernel is the stream kernel of
 ``csrc/mma_stream.cuh``, which the C/D sums (``ops/cd_cuda.py``) share
 through their own offset; its limb scheme and launch shape live here.
+The range mode (``ncols`` given) sums over the columns col0 .. col0 +
+ncols - 1 of every B_m only, one shard of the kappa contraction on a (dp,
+rows) mesh, and returns that shard's partial; its launches count in
+``KERNEL_RANGE`` / ``KERNEL_RANGE_BIG``.
 """
 
 from __future__ import annotations
@@ -36,41 +40,71 @@ KERNEL_BIG = cuda_lib.KernelInfo(
     name="u1_bterm_bigq",
     source="labrador_tpu_torch/csrc/u1.cu",
     replaces="labrador_tpu/ops/u1_pallas.py:104")
+KERNEL_RANGE = cuda_lib.KernelInfo(
+    name="u1_bterm_range",
+    source="labrador_tpu_torch/csrc/u1.cu",
+    replaces="labrador_tpu/ops/u1_pallas.py:164")
+KERNEL_RANGE_BIG = cuda_lib.KernelInfo(
+    name="u1_bterm_range_bigq",
+    source="labrador_tpu_torch/csrc/u1.cu",
+    replaces="labrador_tpu/ops/u1_pallas.py:104")
 
 
-def _stream(t_dig: torch.Tensor, p) -> torch.Tensor:
-    """(t_1, r, kappa, d) digits -> (1, r * t_1 * kappa, d) stream in B
-    order (m = i * t_1 + k, then col)."""
-    return torch.swapaxes(t_dig, 0, 1).reshape(1, p.r * p.t_1 * p.kappa,
+def _col_range(p, col0: int, ncols: int | None) -> int:
+    """The B columns of a call (kappa without a range); raises on a range
+    outside B_m."""
+    if ncols is None:
+        return p.kappa
+    if col0 < 0 or ncols < 1 or col0 + ncols > p.kappa:
+        raise ValueError(f"columns {col0} .. {col0 + ncols} outside B's "
+                         f"{p.kappa}")
+    return ncols
+
+
+def _stream(t_dig: torch.Tensor, p, col0: int = 0,
+            ncols: int | None = None) -> torch.Tensor:
+    """(t_1, r, kappa, d) digits -> (1, r * t_1 * ncols, d) stream in B
+    order (m = i * t_1 + k, then col) over the columns col0 .. col0 +
+    ncols - 1 (all kappa without a range)."""
+    ncols = p.kappa if ncols is None else ncols
+    block = t_dig[:, :, col0:col0 + ncols]
+    return torch.swapaxes(block, 0, 1).reshape(1, p.r * p.t_1 * ncols,
                                                 p.d).contiguous()
 
 
-def u1_bterm(crs, t_dig: torch.Tensor) -> torch.Tensor:
+def u1_bterm(crs, t_dig: torch.Tensor, col0: int = 0,
+             ncols: int | None = None) -> torch.Tensor:
     """(kappa_1, d) mod q for t_dig (t_1, r, kappa, d) digits: residues
-    mod q, or signed (the big-q convention)."""
+    mod q, or signed (the big-q convention).  With ``ncols`` (the range
+    mode): the partial over the columns col0 .. col0 + ncols - 1 of every
+    B_m and of t_dig."""
     if t_dig.is_cuda:
-        return _launch(crs, t_dig)
+        return _launch(crs, t_dig, col0, ncols)
     if t_dig.device.type == "cpu":
-        return u1_bterm_plain(crs, t_dig)
+        return u1_bterm_plain(crs, t_dig, col0, ncols)
     raise ValueError(f"no u1 kernel for device {t_dig.device}")
 
 
-def u1_bterm_plain(crs, t_dig: torch.Tensor) -> torch.Tensor:
+def u1_bterm_plain(crs, t_dig: torch.Tensor, col0: int = 0,
+                   ncols: int | None = None) -> torch.Tensor:
     p = crs.params
     kd = p.kappa * p.d
+    ncols = _col_range(p, col0, ncols)
 
     def draw(l0: int, l1: int) -> torch.Tensor:
-        # l = m * kappa + col: offsets off_b + m*k1*k + row*k*d + col*d + c
+        # l = m * ncols + lc: offsets off_b + m*k1*k + row*k*d
+        # + (col0 + lc)*d + c
         lin = torch.arange(l0, l1, device=t_dig.device)
-        col_off = (lin // p.kappa) * (p.kappa_1 * p.kappa) \
-            + (lin % p.kappa) * p.d
+        col_off = (lin // ncols) * (p.kappa_1 * p.kappa) \
+            + (col0 + lin % ncols) * p.d
         row_off = torch.arange(p.kappa_1, device=t_dig.device) * kd
         c = torch.arange(p.d, device=t_dig.device)
         offs = (crs._off_b + row_off[:, None, None] + col_off[None, :, None]
                 + c[None, None, :])
         return crs.draw(offs)
 
-    return ring_stream_plain(draw, _stream(t_dig, p), p.kappa_1, p.q)[0]
+    return ring_stream_plain(draw, _stream(t_dig, p, col0, ncols),
+                             p.kappa_1, p.q)[0]
 
 
 # The stream kernel's limb scheme and launch constants
@@ -167,17 +201,20 @@ def launch_shape(rows: int, L: int) -> tuple[int, int, int, int]:
         tiles = 1 << (min(tiles - 1, _MAX_GROUP_TILES).bit_length() - 1)
 
 
-def _launch(crs, t_dig: torch.Tensor) -> torch.Tensor:
+def _launch(crs, t_dig: torch.Tensor, col0: int,
+            ncols: int | None) -> torch.Tensor:
     p = crs.params
     check_q(p.q, p.d)
+    ranged = ncols is not None
+    ncols = _col_range(p, col0, ncols)
     cuda_lib.require_cuda_operand(t_dig, "t_dig", (p.t_1, p.r, p.kappa, p.d))
     n_limbs = digit_limbs(p.b_1)
     check_limb_mode(p.q, n_limbs)
     m_total = p.r * p.t_1
-    L = m_total * p.kappa
-    if L >= 1 << 31 or p.kappa_1 * p.d >= 1 << 31:
+    L = m_total * ncols
+    if m_total * p.kappa >= 1 << 31 or p.kappa_1 * p.d >= 1 << 31:
         raise ValueError("u1 shape beyond the kernel's int32 indexing")
-    stream = _stream(t_dig, p)
+    stream = _stream(t_dig, p, col0, ncols)
     tiles, groups, splits, l_per_split = launch_shape(p.kappa_1, L)
     part = torch.empty((splits, 1, p.kappa_1, p.d), dtype=torch.int64,
                        device=t_dig.device)
@@ -187,11 +224,13 @@ def _launch(crs, t_dig: torch.Tensor) -> torch.Tensor:
     lib = cuda_lib.load().lib
     err = lib.u1_bterm_launch(
         stream.data_ptr(), part.data_ptr(), out.data_ptr(), bad.data_ptr(),
-        m_total, p.kappa,
-        p.kappa_1, p.q, barrett_m(p.q), crs._off_b, crs.key[0], crs.key[1],
-        n_limbs, tiles, groups, splits, l_per_split,
-        cuda_lib.stream_ptr(t_dig.device))
+        m_total, ncols, p.kappa, p.kappa_1, col0, p.q, barrett_m(p.q),
+        crs._off_b, crs.key[0], crs.key[1], n_limbs, tiles, groups, splits,
+        l_per_split, cuda_lib.stream_ptr(t_dig.device))
     cuda_lib.check(err)
-    (KERNEL_BIG if is_big(p.q) else KERNEL).launches += 1
-    raise_if_flagged(bad, t_dig, p.q, n_limbs)
+    if ranged:
+        (KERNEL_RANGE_BIG if is_big(p.q) else KERNEL_RANGE).launches += 1
+    else:
+        (KERNEL_BIG if is_big(p.q) else KERNEL).launches += 1
+    raise_if_flagged(bad, stream, p.q, n_limbs)
     return out

@@ -1,10 +1,16 @@
-"""Shared prover/verifier protocol math (single device, small and big q).
+"""Shared prover/verifier protocol math (small and big q).
 
-Counterpart of ``labrador_tpu/protocol.py`` along its ``ctx=None`` branches.
-The three CRS-consuming commitments go through the kernel wrappers
-(``ops/ajtai_cuda``, ``ops/u1_cuda``, ``ops/cd_cuda``), as the JAX package
-sends them through its Pallas kernels on the TPU; everything else is
-eval-domain tensor algebra.  At big q the JAX package accumulates the
+Counterpart of ``labrador_tpu/protocol.py``.  The three CRS-consuming
+commitments go through the kernel wrappers (``ops/ajtai_cuda``,
+``ops/u1_cuda``, ``ops/cd_cuda``), as the JAX package sends them through
+its Pallas kernels on the TPU; everything else is eval-domain tensor
+algebra.  With an ``AxisCtx`` the three commitments run sharded over the
+rows group of a (dp, rows) mesh (``parallel/``): each rank takes the
+range mode of its kernels over its share of kappa (or of the C/D stream)
+and one all-gather or all-reduce completes the result.  Where the JAX
+package sums per-prime partials in the evaluation domain, the port sums
+the kernels' residues as int64 and reduces once mod q; only the results
+must match.  At big q the JAX package accumulates the
 scalar aggregations per CRT prime and folds once, to avoid 66-bit
 products in int32 lanes; here residues are int64 and ``modmath.mulmod``
 takes each product of two residues exactly, so both moduli share one code
@@ -12,6 +18,8 @@ path.  Only the conventions differ: at big q the digits are signed.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -22,7 +30,48 @@ from .ops.cd_cuda import cd_sum
 from .ops.decompose import decompose
 from .ops.modmath import matmul_mod, mod_pos, mulmod
 from .ops.u1_cuda import u1_bterm
+from .parallel.collectives import (CollectiveStats, all_gather_cat,
+                                   all_reduce_sum)
 from .params import LabradorParams, _ceil_log
+
+
+class AxisCtx(NamedTuple):
+    """Collective context of the kappa-sized commitments: the rows
+    ``group`` of a mesh, its ``n_shards`` ranks and this rank's ``index``
+    among them (its group rank).  ``ajtai_commit`` / ``u1_from_digits`` /
+    ``u2_from_digits`` then compute this rank's rows or partials with the
+    kernels' range modes and complete them over the group; ``None`` (the
+    default) is the single-device path.  ``stats`` records the
+    collectives' cost."""
+
+    group: object
+    n_shards: int
+    index: int
+    stats: CollectiveStats | None = None
+
+
+def _kappa_shard(kappa: int, ctx: AxisCtx) -> tuple[int, int]:
+    """(first, count) of this rank's kappa rows or columns; a kappa that
+    the rows axis does not divide is refused, as in the JAX package."""
+    if kappa % ctx.n_shards:
+        raise ValueError(f"kappa={kappa} must divide the rows axis "
+                         f"({ctx.n_shards})")
+    per = kappa // ctx.n_shards
+    return ctx.index * per, per
+
+
+def _stream_shard(L: int, ctx: AxisCtx) -> tuple[int, int]:
+    """(l0, length) of this rank's slice of a stream of L entries, cut as
+    the JAX package's ``_cd_sharded_partial`` cuts it: ceil(L / n) entries
+    a rank, the last ones short or empty."""
+    per = -(-L // ctx.n_shards)
+    l0 = min(L, ctx.index * per)
+    return l0, min(L, l0 + per) - l0
+
+
+def _sum_partials(part: torch.Tensor, q: int, ctx: AxisCtx) -> torch.Tensor:
+    """The all-reduce of this rank's partial (residues in [0, q)), mod q."""
+    return mod_pos(all_reduce_sum(part, ctx.group, ctx.stats), q)
 
 
 # ---------------------------------------------------------------------------
@@ -168,25 +217,49 @@ def _tri_stream(mat_dig: torch.Tensor, params: LabradorParams) -> torch.Tensor:
     return torch.stack(rows).contiguous()
 
 
-def ajtai_commit(crs, witness: torch.Tensor) -> torch.Tensor:
-    """t_i = A s_i: (r_eff, n, d) residues -> (r_eff, kappa, d)."""
-    return _ajtai_kernel(crs, witness.contiguous())
+def ajtai_commit(crs, witness: torch.Tensor,
+                 ctx: AxisCtx | None = None) -> torch.Tensor:
+    """t_i = A s_i: (r_eff, n, d) residues -> (r_eff, kappa, d).  With
+    ``ctx``: this rank's kappa rows of A, then an all-gather along kappa."""
+    if ctx is None:
+        return _ajtai_kernel(crs, witness.contiguous())
+    row0, rows = _kappa_shard(crs.params.kappa, ctx)
+    t_loc = _ajtai_kernel(crs, witness.contiguous(), row0, rows)
+    return all_gather_cat(t_loc, 1, ctx.group, ctx.stats)
 
 
 def u1_from_digits(crs, t_dig: torch.Tensor, g_dig: torch.Tensor,
-                   params: LabradorParams) -> torch.Tensor:
-    """u1 = sum_{i,k} B_ik t_i^(k) + sum_{i<=j,k} C_ijk g_ij^(k) -> (kappa_1, d)."""
+                   params: LabradorParams,
+                   ctx: AxisCtx | None = None) -> torch.Tensor:
+    """u1 = sum_{i,k} B_ik t_i^(k) + sum_{i<=j,k} C_ijk g_ij^(k) -> (kappa_1, d).
+    With ``ctx``: the B-term over this rank's kappa columns of every B_ik
+    plus the C-term over its slice of the (tri, k) stream, then one
+    all-reduce (the rayon loop of proofgen.rs:101-124, over ranks)."""
     p = params
-    bterm = u1_bterm(crs, t_dig.contiguous())
-    cterm = cd_sum(crs, _tri_stream(g_dig, p), crs._off_c, p.t_2, p.b_2)
-    return zq.add(bterm, cterm, p.q)
+    g_stream = _tri_stream(g_dig, p)
+    if ctx is None:
+        bterm = u1_bterm(crs, t_dig.contiguous())
+        cterm = cd_sum(crs, g_stream, crs._off_c, p.t_2, p.b_2)
+        return zq.add(bterm, cterm, p.q)
+    col0, ncols = _kappa_shard(p.kappa, ctx)
+    l0, length = _stream_shard(g_stream.shape[0] * p.t_2, ctx)
+    part = u1_bterm(crs, t_dig.contiguous(), col0, ncols) \
+        + cd_sum(crs, g_stream, crs._off_c, p.t_2, p.b_2, l0, length)
+    return _sum_partials(part, p.q, ctx)
 
 
-def u2_from_digits(crs, h_dig: torch.Tensor,
-                   params: LabradorParams) -> torch.Tensor:
-    """u2 = sum_{i<=j, k<t_1} D_ijk h_ij^(k) -> (kappa_2, d)."""
+def u2_from_digits(crs, h_dig: torch.Tensor, params: LabradorParams,
+                   ctx: AxisCtx | None = None) -> torch.Tensor:
+    """u2 = sum_{i<=j, k<t_1} D_ijk h_ij^(k) -> (kappa_2, d).  With
+    ``ctx``: this rank's slice of the (tri, k) stream, then one
+    all-reduce (the verifier-side rayon site, verification.rs:372-415)."""
     p = params
-    return cd_sum(crs, _tri_stream(h_dig, p), crs._off_d, p.t_1)
+    h_stream = _tri_stream(h_dig, p)
+    if ctx is None:
+        return cd_sum(crs, h_stream, crs._off_d, p.t_1)
+    l0, length = _stream_shard(h_stream.shape[0] * p.t_1, ctx)
+    part = cd_sum(crs, h_stream, crs._off_d, p.t_1, 0, l0, length)
+    return _sum_partials(part, p.q, ctx)
 
 
 # ---------------------------------------------------------------------------

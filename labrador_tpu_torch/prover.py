@@ -6,7 +6,10 @@ runs eagerly, so the phases are plain functions and the JAX
 ``while_loop``s are bounded Python loops.  The relation is a dense
 ``structs.State`` or a ``recursion.FoldedState``.  Every tensor lives on
 the witness's device; on CUDA the kernels run, on the CPU their plain
-versions.
+versions.  With a ``protocol.AxisCtx`` (``parallel/sharded.py``) the
+three commitments run sharded over a mesh's rows group; everything else
+is computed replicated on every rank, from identical inputs and explicit
+keys, so the replicas agree bit for bit.
 """
 
 from __future__ import annotations
@@ -151,16 +154,17 @@ def _jl_with_retries(key, witness_flat: torch.Tensor,
 
 
 def prove_phase1(params: LabradorParams, witness: torch.Tensor, state: State,
-                 crs, oracle, ost, decomp_mode: str = "reference"):
+                 crs, oracle, ost, decomp_mode: str = "reference",
+                 ctx: protocol.AxisCtx | None = None):
     """Steps 1-3: Ajtai t (kernel), Gram g, outer commitment u1 (kernels)."""
     p = params
     plan = ntt_ops.plan_for(p)
     s_hat = ntt_ops.ntt_fwd(witness, plan)
-    t = protocol.ajtai_commit(crs, witness)
+    t = protocol.ajtai_commit(crs, witness, ctx)
     g = ntt_ops.ntt_inv_modq(gram_hat(s_hat, plan), plan)
     t_dig = protocol.decompose_t(t, p, decomp_mode)
     g_dig = protocol.decompose_g(g, p, decomp_mode)
-    u_1 = protocol.u1_from_digits(crs, t_dig, g_dig, p)
+    u_1 = protocol.u1_from_digits(crs, t_dig, g_dig, p, ctx)
     return ost, dict(t=t, g=g, u_1=u_1)
 
 
@@ -179,7 +183,8 @@ def prove_phase2a(params: LabradorParams, witness: torch.Tensor,
 
 def prove_phase2b(params: LabradorParams, witness: torch.Tensor,
                   state: State, crs, oracle, ost, ph1: dict, ph2a: dict,
-                  decomp_mode: str = "reference"):
+                  decomp_mode: str = "reference",
+                  ctx: protocol.AxisCtx | None = None):
     """Steps 5-8: both aggregations, h, u2 (kernel)."""
     p = params
     dev = witness.device
@@ -235,7 +240,7 @@ def prove_phase2b(params: LabradorParams, witness: torch.Tensor,
 
     # -- step 8: outer commitment u2 (proofgen.rs:364-378)
     h_dig = protocol.decompose_h(h, p, decomp_mode)
-    u_2 = protocol.u2_from_digits(crs, h_dig, p)
+    u_2 = protocol.u2_from_digits(crs, h_dig, p, ctx)
     return ost, dict(psi=psi, omega=omega, b_prime_prime=b_pp, alpha=alpha,
                      beta=beta, u_2=u_2, h=h,
                      b_pp_ok=torch.tensor(b_pp_ok, device=dev))
@@ -259,35 +264,40 @@ def prove_phase3(params: LabradorParams, witness: torch.Tensor, oracle, ost,
 
 
 def prove_impl(params: LabradorParams, witness: torch.Tensor, state: State,
-               crs, oracle, decomp_mode: str = "reference") -> Transcript:
-    """Phases 1 -> 2a -> 2b -> 3 with the oracle state carried through."""
+               crs, oracle, decomp_mode: str = "reference",
+               ctx: protocol.AxisCtx | None = None) -> Transcript:
+    """Phases 1 -> 2a -> 2b -> 3 with the oracle state carried through;
+    with ``ctx`` the commitments sharded over its group (one protocol
+    implementation serves one device and a mesh)."""
     ost = oracle.init()
     ost, ph1 = prove_phase1(params, witness, state, crs, oracle, ost,
-                            decomp_mode)
+                            decomp_mode, ctx)
     ost, ph2a = prove_phase2a(params, witness, state, crs, oracle, ost, ph1)
     ost, ph2b = prove_phase2b(params, witness, state, crs, oracle, ost, ph1,
-                              ph2a, decomp_mode)
+                              ph2a, decomp_mode, ctx)
     ph2 = {**ph2a, **ph2b}
     ph3 = prove_phase3(params, witness, oracle, ost, ph2)
     return Transcript(t=ph1["t"], g=ph1["g"], u_1=ph1["u_1"], **ph2, **ph3)
 
 
 def prove(params: LabradorParams, witness: torch.Tensor, state: State, crs,
-          verifier_key: Key, decomp_mode: str = "reference") -> Transcript:
+          verifier_key: Key, decomp_mode: str = "reference",
+          ctx: protocol.AxisCtx | None = None) -> Transcript:
     """Interactive-model proof: challenges from the verifier's key."""
     return prove_impl(params, witness, state, crs,
-                      InteractiveOracle(vkey=verifier_key), decomp_mode)
+                      InteractiveOracle(vkey=verifier_key), decomp_mode, ctx)
 
 
 def prove_fs(params: LabradorParams, witness: torch.Tensor, state: State,
-             crs, decomp_mode: str = "reference") -> Transcript:
+             crs, decomp_mode: str = "reference",
+             ctx: protocol.AxisCtx | None = None) -> Transcript:
     """Non-interactive (Fiat-Shamir) proof: challenges from a SHA-256
     running hash of the protocol messages, with the CRS seed, the
     parameter set and the statement bound into the initial state
     (FS_SPEC.md)."""
     return prove_impl(params, witness, state, crs,
                       FiatShamirOracle.create(crs.key, state, params),
-                      decomp_mode)
+                      decomp_mode, ctx)
 
 
 def _instance_meta(params: LabradorParams, decomp_mode: str) -> dict:

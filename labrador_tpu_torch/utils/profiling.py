@@ -3,7 +3,9 @@
 Counterpart of ``labrador_tpu/utils/profiling.py`` (``PhaseTimer``).  On
 a CUDA device a phase's time runs from a synchronize before it to one
 after it, so it holds the device work the phase queued, not only its
-launches; on the CPU the host clock alone.
+launches; on the CPU the host clock alone.  The device defaults to
+``"cuda"``, as every entry point of the port: a CPU caller passes
+``"cpu"``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 class PhaseTimer:
     """Named phase durations in seconds, summed over repeats."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.device = torch.device(device)
         self.phases: dict[str, float] = {}
 

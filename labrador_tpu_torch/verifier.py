@@ -6,7 +6,8 @@ Counterpart of ``labrador_tpu/verifier.py`` (``check14_norm_bound``,
 with the same report keys, for a dense ``structs.State`` or (interactive
 only) a ``recursion.FoldedState``.  Checks 15, 19 and 20
 re-expand the CRS through the commitment kernels (CUDA tensors) or their
-plain versions (CPU tensors).
+plain versions (CPU tensors), sharded over a mesh's rows group when
+``verify_report`` is given a ``protocol.AxisCtx``.
 """
 
 from __future__ import annotations
@@ -99,9 +100,11 @@ def check14_norm_bound(p: LabradorParams, z, z_dig, t_dig, g_dig, h_dig,
 
 def verify_report(params: LabradorParams, state: State, proof: Transcript,
                   crs, decomp_mode: str = "reference",
-                  norm_mode: str = "exact") -> dict:
+                  norm_mode: str = "exact",
+                  ctx: protocol.AxisCtx | None = None) -> dict:
     """All checks as {name: bool}, plus 'all' (checks 8-20) and
-    'all_with_bpp' (also the b'' constant term)."""
+    'all_with_bpp' (also the b'' constant term).  With ``ctx`` checks 15,
+    19 and 20 run sharded over its group (``parallel/sharded.py``)."""
     p = params
     plan = ntt_ops.plan_for(p)
     checks: dict[str, bool] = {}
@@ -130,7 +133,7 @@ def verify_report(params: LabradorParams, state: State, proof: Transcript,
     # to_signed_small at big q (the identity on every valid z)
     z_hat = ntt_ops.ntt_fwd(proof.z, plan)
     z_c = to_signed_i32(zq.to_signed_small(mod_pos(proof.z, p.q), p.q))
-    lhs = protocol.ajtai_commit(crs, z_c[None])[0]
+    lhs = protocol.ajtai_commit(crs, z_c[None], ctx)[0]
     c_hat = ntt_ops.ntt_fwd(proof.c, plan)
     t_hat = ntt_ops.ntt_fwd(proof.t, plan)
     rhs = ntt_ops.ntt_inv_modq(ntt_ops._mod_sum_p(
@@ -174,11 +177,11 @@ def verify_report(params: LabradorParams, state: State, proof: Transcript,
                                                 == 0))
 
     # ---- check 19: recompute u1 (verification.rs:357-415)
-    u1_cand = protocol.u1_from_digits(crs, t_dig, g_dig, p)
+    u1_cand = protocol.u1_from_digits(crs, t_dig, g_dig, p, ctx)
     checks["c19_u1"] = zq.all_eq(u1_cand, proof.u_1)
 
     # ---- check 20: recompute u2 (verification.rs:421-434)
-    u2_cand = protocol.u2_from_digits(crs, h_dig, p)
+    u2_cand = protocol.u2_from_digits(crs, h_dig, p, ctx)
     checks["c20_u2"] = zq.all_eq(u2_cand, proof.u_2)
 
     # ---- b'' constant-term consistency (verification.rs:532-551)

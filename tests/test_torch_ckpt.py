@@ -175,3 +175,11 @@ def test_phase_timer_cpu():
     lines = timer.report().splitlines()
     assert lines[0].startswith("a: ") and lines[-1].startswith("total: ")
     assert len(lines) == 3
+
+
+def test_phase_timer_defaults_to_cuda():
+    """A timer made without a device syncs the card, as every entry point
+    of the port defaults to it (its phases hold the queued device work);
+    the CPU is asked for by name."""
+    assert PhaseTimer().device == torch.device("cuda")
+    assert PhaseTimer("cpu").device == torch.device("cpu")

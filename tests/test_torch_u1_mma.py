@@ -14,6 +14,11 @@ and ``csrc/cd.cu``), modelled on the CPU.
   with the C/D offsets (the D-term over t_1, the C-term over t_2 < t_1,
   where the offset is not affine in the stream index), digits at +-b/2 of
   their base, bit-equal to ``cd_sum_plain``.
+* The range modes' offsets (``U1Offset`` with its stream divisor ncols
+  apart from its row stride kappa and a first column col0; ``CdOffset``
+  with a first stream entry l0), modelled as the kernel computes them,
+  through the limb model on one shard's digits, equal the ranged plain
+  versions, for every shard of 4 (u1) and of 5, cut unevenly (C/D).
 * The wrappers' digit-range check raises for a digit beyond its limbs,
   the C/D wrapper's too.
 
@@ -222,6 +227,93 @@ def test_cd_limb_model_matches_plain(q, use):
     want = cd_cuda.cd_sum_plain(crs, stream, base_off, t_used)
     got = limb_model(draw, stream.reshape(-1, p.d), p.kappa_2, q, n_limbs)
     assert torch.equal(got, want)
+
+
+def u1_offset(off_b: int, ncols: int, kappa: int, kappa1: int, col0: int):
+    """``U1Offset`` (csrc/u1.cu): (stream(l), row(r)) as the kernel
+    computes them, the stream divisor ncols apart from the row stride
+    kappa."""
+    def stream(l: torch.Tensor) -> torch.Tensor:
+        lm = l // ncols
+        lc = l - lm * ncols
+        return off_b + lm * kappa1 * kappa + (col0 + lc) * 64
+
+    return stream, lambda r: r * kappa * 64
+
+
+def cd_offset(base: int, t_used: int, t1: int, kappa2: int, l0: int):
+    """``CdOffset`` (csrc/cd.cu): (stream(l), row(r)) for the l-th local
+    digit of a stream slice starting at entry l0."""
+    def stream(l: torch.Tensor) -> torch.Tensor:
+        lin = l0 + l
+        return base + ((lin // t_used) * t1 + lin % t_used) * kappa2 * 64
+
+    return stream, lambda r: r * 64
+
+
+def offset_draw(crs, off, rows: int):
+    """The CRS tile (rows, l1 - l0, 64) at offset stream(l) + row(r) + c,
+    the 64 consecutive counters the kernel expands a ring element from."""
+    stream, row = off
+
+    def draw(l0: int, l1: int) -> torch.Tensor:
+        offs = (stream(torch.arange(l0, l1))[None, :, None]
+                + row(torch.arange(rows))[:, None, None]
+                + torch.arange(64)[None, None, :])
+        return crs.draw(offs)
+    return draw
+
+
+@pytest.mark.parametrize("shard", [0, 1, 2, 3])
+@pytest.mark.parametrize("q", MODULI)
+def test_ranged_u1_offset_matches_plain(q, shard):
+    """One shard of 4 of the B-term's kappa columns: the kernel's ranged
+    offset and limbs on that column block of the digits equal the ranged
+    plain version."""
+    p = _params(q)
+    crs = CRS.create(p, SEED)
+    rng = np.random.default_rng(q % 991 + shard)
+    t_dig = _digits(p, rng, extreme=False)
+    ncols = p.kappa // 4
+    col0 = shard * ncols
+    stream = u1_cuda._stream(t_dig, p, col0, ncols)[0]
+    assert stream.shape[0] == p.r * p.t_1 * ncols
+    draw = offset_draw(crs, u1_offset(crs._off_b, ncols, p.kappa,
+                                      p.kappa_1, col0), p.kappa_1)
+    got = limb_model(draw, stream, p.kappa_1, q, u1_cuda.digit_limbs(p.b_1))
+    assert torch.equal(got, u1_cuda.u1_bterm_plain(crs, t_dig, col0, ncols))
+
+
+@pytest.mark.parametrize("use", ["D", "C"])
+@pytest.mark.parametrize("q", MODULI)
+def test_ranged_cd_offset_matches_plain(q, use):
+    """The C/D stream cut into 5 (ceil(L / 5) entries a shard, the last
+    short and the ones after empty: L = 6, 9, 12 here): each shard
+    through the kernel's ranged offset and limbs equals the ranged plain
+    version, and the shards sum to the whole."""
+    p = _params(q)
+    crs = CRS.create(p, SEED)
+    base_off, t_used, b = ((crs._off_d, p.t_1, p.b_1) if use == "D"
+                           else (crs._off_c, p.t_2, p.b_2))
+    h = b // 2
+    rng = np.random.default_rng(q % 983 + t_used)
+    x = rng.integers(-h, h + 1, (t_used, p.r, p.r, p.d))
+    dig = _tri_stream(torch.from_numpy(x if q > Q_SMALL else x % q), p)
+    L = dig.shape[0] * t_used
+    per = -(-L // 5)
+    total = torch.zeros((p.kappa_2, p.d), dtype=torch.int64)
+    for l0 in range(0, L, per):
+        n = min(per, L - l0)
+        local = dig.reshape(L, p.d)[l0:l0 + n]
+        draw = offset_draw(crs, cd_offset(base_off, t_used, p.t_1,
+                                          p.kappa_2, l0), p.kappa_2)
+        got = limb_model(draw, local, p.kappa_2, q,
+                         cd_cuda.stream_digit_limbs(crs, b))
+        want = cd_cuda.cd_sum_plain(crs, dig, base_off, t_used, l0, n)
+        assert torch.equal(got, want), l0
+        total = mod_pos(total + got, q)
+    assert torch.equal(total, cd_cuda.cd_sum_plain(crs, dig, base_off,
+                                                   t_used))
 
 
 @pytest.mark.parametrize("q", [Q_SMALL, Q_BIG])
