@@ -29,7 +29,8 @@ Every phase raises on failure, so the script exits non-zero; without a
 CUDA device it exits non-zero before printing any result.  The line before
 the last lists each kernel with its launches in the 2^14 runs of the main
 paths (``-R``, ``--fs`` and ``--phases`` at its modulus; for a range mode
-the 2^14 sharded proves, summed over the ranks), its time beside the
+the 2^14 sharded proves, summed over the ranks; for a table mode the
+ChaCha phase's proves and verifies), its time beside the
 plain version's, a library call's and its bound; the last line of
 standard output is the result JSON.  Imports
 nothing of JAX.
@@ -210,16 +211,18 @@ def _kernel_info(mod, q: int):
     return mod.KERNEL_BIG if is_big(q) else mod.KERNEL
 
 
-def _kernel_inputs(p, seed: int) -> SimpleNamespace:
+def _kernel_inputs(p, seed: int, crs=None) -> SimpleNamespace:
     """The commitment kernels' operands at the shapes of instance ``p``
-    from a fixed numpy seed (``_kernel_cases`` says which), the CRS, and
-    ``work``, the Work of one stream contraction."""
+    from a fixed numpy seed (``_kernel_cases`` says which), the CRS (a
+    Threefry one from the seed unless ``crs`` is given), and ``work``, the
+    Work of one stream contraction."""
     from labrador_tpu_torch.crs import CRS
     from labrador_tpu_torch.ops import ajtai_cuda, ntt
     from labrador_tpu_torch.ops.zq import is_big
     from labrador_tpu_torch.protocol import _tri_stream
 
-    crs = CRS.create(p, seed=0xC0FFEE + seed)
+    if crs is None:
+        crs = CRS.create(p, seed=0xC0FFEE + seed)
     rng = np.random.default_rng(seed)
     d = p.d
     big = is_big(p.q)
@@ -556,13 +559,14 @@ def phase_polymul() -> dict:
 
 def _kernels():
     """Every kernel of the port, each mode of kernels 2-4 apart (small q,
-    big q, and the range mode of each)."""
+    big q, the range mode of each, and the table mode)."""
     from labrador_tpu_torch.ops import (ajtai_cuda, cd_cuda, polymul_cuda,
                                         u1_cuda)
     mods = (ajtai_cuda, u1_cuda, cd_cuda)
     return ([polymul_cuda.KERNEL] + [m.KERNEL for m in mods]
             + [m.KERNEL_BIG for m in mods] + [m.KERNEL_RANGE for m in mods]
-            + [m.KERNEL_RANGE_BIG for m in mods])
+            + [m.KERNEL_RANGE_BIG for m in mods]
+            + [m.KERNEL_TABLE for m in mods])
 
 
 def _reset_counts() -> None:
@@ -1454,6 +1458,324 @@ def phase_range_modes(stats: dict) -> None:
                           bound_by=bound_by, library_ms=None)
 
 
+# ---------------------------------------------------------------------------
+# the reference-parity CRS: MaterializedCRS and the kernels' table modes
+# ---------------------------------------------------------------------------
+
+GOLDEN_CHACHA = ROOT / "labrador_tpu_torch" / "golden" / "config1_chacha.json"
+TABLE_KERNELS = ("ajtai_commit_table", "u1_bterm_table", "cd_sum_table")
+# every commitment kernel that expands the Threefry CRS
+THREEFRY_KERNELS = UNRANGED_KERNELS + RANGE_KERNELS + RANGE_BIG_KERNELS
+REFSIM_FIELDS = ("t", "g", "u_1", "projection", "b_prime_prime", "h", "u_2",
+                 "z")
+CHACHA_SEED = bytes(range(32))
+
+
+def _require_table_only(counts: dict, where: str) -> None:
+    """The table modes launched, and no commitment kernel in a Threefry
+    mode."""
+    _require_launched(counts, TABLE_KERNELS, where)
+    threefry = {k: counts[k] for k in THREEFRY_KERNELS if counts[k]}
+    if threefry:
+        raise AssertionError(f"{where}: Threefry-mode commitment kernels "
+                             f"launched on a MaterializedCRS: {threefry}")
+
+
+def _chacha_config1() -> dict:
+    """Config 1 on ``MaterializedCRS.create_chacha``: the table, ``prove``
+    and ``prove_fs`` equal golden/config1_chacha.json (digests, sizes,
+    f64_reference reports, FS checks); the port's refsim derives the same
+    transcript fields and its ref_verify accepts; the table modes launch
+    in prove and in verify, no Threefry mode.  Returns the launch counts
+    of the prove, verify and FS runs."""
+    import hashlib
+
+    from labrador_tpu_torch import (keys, prover, sampling, structs,
+                                    verifier)
+    from labrador_tpu_torch.crs import MaterializedCRS
+    from labrador_tpu_torch.params import LabradorParams
+    from labrador_tpu_torch.utils import refsim
+
+    golden = json.loads(GOLDEN_CHACHA.read_text())
+    cfg = golden["config"]
+    p = LabradorParams(n=cfg["n"], r=cfg["r"])
+    crs = MaterializedCRS.create_chacha(p, bytes.fromhex(cfg["base_seed"]),
+                                        "cuda")
+    table = hashlib.sha256(crs.coeffs.cpu().numpy().astype("<i4")
+                           .tobytes()).hexdigest()
+    if table != golden["table_sha256"]:
+        raise AssertionError(f"config-1 ChaCha table {table} != golden")
+    kw, ks, kv = keys.split(keys.key(cfg["key_seed"]), 3)
+    witness = sampling.generate_witness(kw, p, "cuda")
+    state = structs.generate_state(ks, witness, p)
+    f64 = dict(norm_mode="f64_reference")
+    counts: dict = {}
+
+    def counted(fn, where: str):
+        _reset_counts()
+        out = fn()
+        _sync()
+        _require_table_only(_counts(), where)
+        _add_counts(counts, _counts())
+        return out
+
+    proof = counted(lambda: prover.prove(p, witness, state, crs, kv),
+                    "config-1 ChaCha prove")
+    report = counted(lambda: verifier.verify_report(p, state, proof, crs,
+                                                    **f64),
+                     "config-1 ChaCha verify")
+    proof_fs = counted(lambda: prover.prove_fs(p, witness, state, crs),
+                       "config-1 ChaCha prove_fs")
+    report_fs = counted(lambda: verifier.verify_report(p, state, proof_fs,
+                                                       crs, **f64),
+                        "config-1 ChaCha verify (FS proof)")
+    fs_report = verifier.fs_challenge_report(p, state, proof_fs, crs)
+    got = {
+        "transcript_sha256": structs.transcript_sha256(proof, p.q),
+        "transcript_size_in_bytes": structs.transcript_size_in_bytes(
+            proof, p.q),
+        "transcript_size_in_bytes_fs": structs.transcript_size_in_bytes(
+            proof, p.q, fs=True),
+        "verify_report": report}
+    got_fs = {
+        "transcript_sha256": structs.transcript_sha256(proof_fs, p.q),
+        "transcript_size_in_bytes_fs": structs.transcript_size_in_bytes(
+            proof_fs, p.q, fs=True),
+        "verify_report": report_fs, "fs_challenge_report": fs_report}
+    for label, rec, want in (("prove", got, golden["prove"]),
+                             ("prove_fs", got_fs, golden["prove_fs"])):
+        if rec != want:
+            diff = [k for k in want if rec.get(k) != want[k]]
+            raise AssertionError(f"config-1 ChaCha {label}: {diff} differ "
+                                 f"from the JAX golden record")
+    ref = refsim.ref_prove(p, witness, state, crs,
+                           refsim.extract_challenges(proof))
+    for field in REFSIM_FIELDS:
+        if not np.array_equal(getattr(proof, field).cpu().numpy(),
+                              ref[field]):
+            raise AssertionError(f"config-1 ChaCha: field {field} != "
+                                 f"refsim's")
+    ref_rep = refsim.ref_verify(p, state, proof, crs)
+    if not ref_rep["all"]:
+        raise AssertionError(f"refsim rejects the config-1 ChaCha proof: "
+                             f"{ref_rep}")
+    fs_size = got_fs["transcript_size_in_bytes_fs"]
+    log(f"chacha config1: table sha256 == golden; prove sha256 "
+        f"{got['transcript_sha256']} size {got['transcript_size_in_bytes']}"
+        f" B (fs {got['transcript_size_in_bytes_fs']} B), prove_fs "
+        f"{got_fs['transcript_sha256']} (fs {fs_size} B), reports and FS "
+        f"checks == JAX golden; refsim fields {', '.join(REFSIM_FIELDS)} "
+        f"equal, ref_verify accepts; launches {counts}")
+    return counts
+
+
+def _drawn(plain, crs):
+    """plain(crs) on a copy of the MaterializedCRS that records the
+    offsets its plain version reads: (result, offsets (rows, L, d))."""
+    from labrador_tpu_torch.crs import MaterializedCRS
+    drawn = []
+
+    class Recording(MaterializedCRS):
+        def draw(self, offsets):
+            drawn.append(offsets)
+            return super().draw(offsets)
+
+    out = plain(Recording(coeffs=crs.coeffs, key=crs.key, params=crs.params))
+    return out, torch.cat(drawn, 1)
+
+
+def _library_call(table: torch.Tensor, offs: torch.Tensor,
+                  dig: torch.Tensor, q: int):
+    """The same function as one gather and one float64 product: the tile
+    by ``torch.take`` at the offsets, contracted with one ``torch.matmul``
+    against the centred digits' negacyclic circulant (every partial sum is
+    an integer below 2^53, so exact), then mod q.  The offsets and the
+    circulant are made once, outside the call."""
+    from labrador_tpu_torch.ops.ring_stream import circulant
+    from labrador_tpu_torch.ops.zq import to_signed_small
+
+    rows, L, d = offs.shape
+    if int(offs.max()) >= table.numel():
+        raise AssertionError("a library tile reads beyond the table")
+    idx = offs.reshape(rows, L * d)
+    circ = circulant(to_signed_small(dig, q)).reshape(
+        dig.shape[0], L * d, d).to(torch.float64)
+
+    def call() -> torch.Tensor:
+        tile = torch.take(table, idx).to(torch.float64)
+        return torch.remainder(torch.matmul(tile, circ), q).to(torch.int64)
+
+    return call
+
+
+def _table_cases(p, crs, seed: int):
+    """(kernel module, label, kernel fn, plain fn (of a CRS), digits of
+    the library call (nrhs, L, d), Work without the table's bytes) of the
+    table modes at the shapes of ``p`` on ``_kernel_inputs``'s operands:
+    each whole, then shard 0 of N_SHARDS of each range mode."""
+    from labrador_tpu_torch.ops import ajtai_cuda, cd_cuda, u1_cuda
+    from labrador_tpu_torch.ops.cd_cuda import _local_digits
+    from labrador_tpu_torch.protocol import AxisCtx, _stream_shard
+
+    x = _kernel_inputs(p, seed, crs)
+    w, t_dig, g_str, h_str, work = x.w, x.t_dig, x.g_str, x.h_str, x.work
+    n_tri = p.r * (p.r + 1) // 2
+    per = p.kappa // N_SHARDS
+    _, m = _stream_shard(n_tri * p.t_1, AxisCtx(None, N_SHARDS, 0))
+
+    def table_work(wk: Work) -> Work:
+        return Work(wk.nbytes, 0, wk.macs, wk.limb_products, wk.mac_ops)
+
+    return [
+        (ajtai_cuda, "ajtai r_eff=r",
+         lambda c: ajtai_cuda.ajtai_commit(c, w),
+         lambda c: ajtai_cuda.ajtai_commit_plain(c, w), w,
+         table_work(work(p.kappa, p.n, p.r, x.w_max, x.aj_lp))),
+        (u1_cuda, "u1 B-term",
+         lambda c: u1_cuda.u1_bterm(c, t_dig),
+         lambda c: u1_cuda.u1_bterm_plain(c, t_dig),
+         u1_cuda._stream(t_dig, p),
+         table_work(work(p.kappa_1, p.r * p.t_1 * p.kappa, 1, p.b_1 // 2))),
+        (cd_cuda, "cd D-term (u2)",
+         lambda c: cd_cuda.cd_sum(c, h_str, c._off_d, p.t_1),
+         lambda c: cd_cuda.cd_sum_plain(c, h_str, c._off_d, p.t_1),
+         _local_digits(h_str, 0, None)[None],
+         table_work(work(p.kappa_2, n_tri * p.t_1, 1, p.b_1 // 2))),
+        (cd_cuda, "cd C-term (u1)",
+         lambda c: cd_cuda.cd_sum(c, g_str, c._off_c, p.t_2, p.b_2),
+         lambda c: cd_cuda.cd_sum_plain(c, g_str, c._off_c, p.t_2),
+         _local_digits(g_str, 0, None)[None],
+         table_work(work(p.kappa_2, n_tri * p.t_2, 1, p.b_2 // 2))),
+        (ajtai_cuda, f"ajtai rows 0-{per - 1}",
+         lambda c: ajtai_cuda.ajtai_commit(c, w, 0, per),
+         lambda c: ajtai_cuda.ajtai_commit_plain(c, w, 0, per), w,
+         table_work(work(per, p.n, p.r, x.w_max, x.aj_lp))),
+        (u1_cuda, f"u1 columns 0-{per - 1}",
+         lambda c: u1_cuda.u1_bterm(c, t_dig, 0, per),
+         lambda c: u1_cuda.u1_bterm_plain(c, t_dig, 0, per),
+         u1_cuda._stream(t_dig, p, 0, per),
+         table_work(work(p.kappa_1, p.r * p.t_1 * per, 1, p.b_1 // 2))),
+        (cd_cuda, f"cd D-term 0-{m - 1}",
+         lambda c: cd_cuda.cd_sum(c, h_str, c._off_d, p.t_1, 0, 0, m),
+         lambda c: cd_cuda.cd_sum_plain(c, h_str, c._off_d, p.t_1, 0, m),
+         _local_digits(h_str, 0, m)[None],
+         table_work(work(p.kappa_2, m, 1, p.b_1 // 2))),
+    ]
+
+
+def hold_table_modes(p, crs, label_size: str, stats: dict | None = None,
+                     plain_reps: int = 2) -> None:
+    """The table modes against their plain versions (on the same table)
+    at the shapes of ``p``, whole and in a range shard; bit-equality
+    required, and the library call equal too.  Each case is timed beside
+    its bound: tensor-core limb products (``Work``) and the table entries
+    it reads (each distinct entry once, 4 bytes, over the memory rate).
+    Where ``stats`` is given, records each table mode's error, and the
+    times and bound of its whole case."""
+    for mod, label, kern, plain, dig, work in _table_cases(p, crs, seed=7):
+        got = kern(crs)
+        want, offs = _drawn(plain, crs)
+        _sync()
+        err = int(torch.max(torch.abs(got - want)))
+        if got.shape != want.shape or err != 0:
+            raise AssertionError(f"table {label} at {label_size}: kernel != "
+                                 f"plain (max abs err {err})")
+        library = _library_call(crs.coeffs, offs, dig, p.q)
+        if not torch.equal(library().reshape(got.shape), got):
+            raise AssertionError(f"table {label} at {label_size}: the "
+                                 f"library call != the kernel")
+        seen = torch.zeros(crs.coeffs.numel(), dtype=torch.bool,
+                           device="cuda")
+        seen[offs.reshape(-1)] = True
+        distinct = int(seen.sum())
+        work.nbytes += 4 * distinct
+        del seen, offs
+        ms = cuda_ms(lambda: kern(crs), 10)
+        plain_ms = cuda_ms(lambda: plain(crs), plain_reps)
+        library_ms = cuda_ms(library, 3)
+        bound_ms, bound_by = work.bound()
+        log(f"table {label:18s} {label_size:8s} {str(tuple(got.shape)):15s}"
+            f" bit-equal (tolerance 0), library == kernel; kernel {ms:.4f} "
+            f"ms  plain {plain_ms:.4f} ms  library {library_ms:.4f} ms  "
+            f"{distinct} distinct table entries; {work.describe()}; at "
+            f"{bound_ms / ms:.1%} of the bound")
+        del library
+        if stats is None:
+            continue
+        st = stats.setdefault(mod.KERNEL_TABLE.name, {"max_abs_err": 0})
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        if "ms" not in st:
+            st.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, library_ms=library_ms)
+
+
+def phase_chacha(stats: dict) -> dict:
+    """The reference-parity CRS on the card: config 1 against the JAX
+    golden record and refsim (``_chacha_config1``); the table modes
+    bit-equal to their plain versions at config 1 and at 2^14 (n = r =
+    16, kappa = 256, on its ChaCha table: 26,279,936 coefficients), whole
+    and ranged; then 2^14 on the ChaCha CRS end to end, prove and verify,
+    every check true, with the table's generation time (host threads,
+    then the copy to the card), the peak device memory of the prove and
+    verify (the table included) and their ms.  The witness is the
+    sampler's, as in ``phase_real``: at q = 8191 it halves a 2^14 witness
+    to zero (only the zero witness meets check 14 there), and the
+    kernels read every table entry of the commitments all the same.
+    Returns the launch counts of the ChaCha prove and verify runs."""
+    from labrador_tpu_torch import (keys, prover, sampling, structs,
+                                    verifier)
+    from labrador_tpu_torch.crs import MaterializedCRS, _used_intervals
+    from labrador_tpu_torch.params import LabradorParams
+
+    t0 = time.perf_counter()
+    counts = _chacha_config1()
+    p1 = LabradorParams(n=2, r=2)
+    hold_table_modes(p1, MaterializedCRS.create_chacha(p1, CHACHA_SEED,
+                                                       "cuda"), "config1")
+
+    p = LabradorParams(n=REAL["n"], r=REAL["r"], kappa_override=REAL["kappa"])
+    _sync()
+    t_gen = time.perf_counter()
+    crs = MaterializedCRS.create_chacha(p, CHACHA_SEED, "cuda")
+    _sync()
+    gen_s = time.perf_counter() - t_gen
+    hold_table_modes(p, crs, "2^14", stats, plain_reps=1)
+
+    kw, ks, kv = keys.split(keys.key(42), 3)
+    witness = sampling.generate_witness(kw, p, "cuda")
+    state = structs.generate_state(ks, witness, p)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()     # the table is the baseline
+    _reset_counts()
+    _sync()
+    t1 = time.perf_counter()
+    proof = prover.prove(p, witness, state, crs, kv)
+    _sync()
+    t2 = time.perf_counter()
+    report = verifier.verify_report(p, state, proof, crs)
+    _sync()
+    t3 = time.perf_counter()
+    launched = {k: v for k, v in _counts().items() if v}
+    _require_table_only(_counts(), "2^14 ChaCha prove + verify")
+    _add_counts(counts, _counts())
+    if not (bool(proof.jl_ok) and bool(proof.b_pp_ok)) or \
+            not all(report.values()):
+        failed = [k for k, v in report.items() if not v]
+        raise AssertionError(f"2^14 ChaCha prove + verify failed: {failed}")
+    size = structs.transcript_size_in_bytes(proof, p.q, fs=True)
+    generated = sum(hi - lo for lo, hi in _used_intervals(p))
+    log(f"chacha 2^14: {crs.coeffs.numel()} table entries ("
+        f"{crs.coeffs.numel() * 4 / 1e9:.3f} GB int32), {generated} ChaCha "
+        f"coefficients generated in {gen_s:.2f} s (host threads, then the "
+        f"copy to the card); prove {(t2 - t1) * 1e3:.2f} ms, verify "
+        f"{(t3 - t2) * 1e3:.2f} ms (first run, host clock after sync), every"
+        f" check true, fs size {size} B; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches "
+        f"{launched}")
+    log(f"chacha phase: {time.perf_counter() - t0:.2f} s")
+    return counts
+
+
 def _tamper_u1(proof, q: int):
     """u_1[3, 5] + 1 (the tamper of tests/test_sharded.py)."""
     u_1 = proof.u_1.clone()
@@ -1710,6 +2032,7 @@ def main() -> int:
     _add_counts(launches, phase_fs_real(big_q=False))
     _add_counts(launches, phase_fs_real(big_q=True))
     _add_counts(launches, phase_phases_real())
+    _add_counts(launches, phase_chacha(stats))
     _add_counts(launches, phase_sharded(card))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.2f} s "
         f"on {card}, the kernels' build included")

@@ -35,22 +35,12 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
 import torch
 
-
-def _card(device: str) -> str:
-    """The device as nvidia-smi names it, with its power limit, or the
-    CPU."""
-    if torch.device(device).type != "cuda":
-        return "cpu"
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
+from labrador_tpu_torch.benchmarks.common import card as _card
 
 
 def _instance(args, device):

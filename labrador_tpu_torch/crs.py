@@ -1,9 +1,11 @@
-"""Common Reference String: a virtual, lazily expanded random oracle.
+"""Common Reference String: entries at global 64-bit offsets.
 
-Counterpart of ``labrador_tpu/crs.py`` (the Threefry ``CRS``; the
-ChaCha-compatible ``MaterializedCRS`` belongs to a later slice).  Entries
-are defined positionally by a global 64-bit offset from the seed, in the
-reference's layout (``structs.rs:55-144``) with its two quirks kept:
+Counterpart of ``labrador_tpu/crs.py``: the virtual, lazily expanded
+Threefry ``CRS`` and the reference-parity ``MaterializedCRS`` (every
+coefficient drawn as the reference draws it, by a fresh ChaCha20 keyed by
+base seed + offset, held as one flat table).  Both share the reference's
+offset layout (``structs.rs:55-144``), in ``_CrsLayout``, with its two
+quirks kept:
 
 * the B-matrix stride ``(i*t_1 + k) * kappa_1 * kappa`` has no factor d
   (``structs.rs:82``);
@@ -16,9 +18,10 @@ Matrix shapes (coefficient domain, int64 residues in [0, q)):
   C_ijk  : (kappa_2, d)         for i <= j < r, k < t_2
   D_ijk  : (kappa_2, d)         for i <= j < r, k < t_1
 
-The commitment kernels expand their tiles in registers from ``key`` and
-these offsets; the methods below materialize tiles for the plain versions
-and the tests.
+Every fetcher reads through ``draw(offsets)``.  The commitment kernels
+expand their tiles in registers from a ``CRS``'s ``key``, or read a
+``MaterializedCRS``'s table (their table modes); the fetchers materialize
+tiles for the plain versions, the recursion's streams and the tests.
 """
 
 from __future__ import annotations
@@ -30,20 +33,14 @@ import torch
 
 from .params import LabradorParams
 from .ops import prg
+from .ops.zq import is_big
 
 
-@dataclass(frozen=True)
-class CRS:
-    """Seeded virtual CRS.  ``key`` is the (k0, k1) uint32 word pair the
-    JAX package stores as its (2,) uint32 key array."""
+class _CrsLayout:
+    """The offset layout and the fetchers, shared by ``CRS`` and
+    ``MaterializedCRS``; a subclass has ``params`` and ``draw``."""
 
-    key: tuple[int, int]
     params: LabradorParams
-
-    @classmethod
-    def create(cls, params: LabradorParams, seed: int) -> "CRS":
-        return cls(key=((seed >> 32) & prg.M32, seed & prg.M32),
-                   params=params)
 
     # -- offset layout (verbatim from structs.rs:55-144) -------------------
     @property
@@ -147,7 +144,91 @@ class CRS:
             start += idx1 * stride1
         return self.draw(prg.offset_iota(start, shape, strides, device))
 
+
+@dataclass(frozen=True)
+class CRS(_CrsLayout):
+    """Seeded virtual CRS.  ``key`` is the (k0, k1) uint32 word pair the
+    JAX package stores as its (2,) uint32 key array."""
+
+    key: tuple[int, int]
+    params: LabradorParams
+
+    @classmethod
+    def create(cls, params: LabradorParams, seed: int) -> "CRS":
+        return cls(key=((seed >> 32) & prg.M32, seed & prg.M32),
+                   params=params)
+
     def draw(self, offsets: torch.Tensor) -> torch.Tensor:
-        """CRS entries at int64 ``offsets`` (any shape)."""
+        """CRS entries at int64 ``offsets`` (any shape): Threefry."""
         return prg.uniform_mod_q(self.key[0], self.key[1], offsets,
                                  self.params.q)
+
+
+def _used_intervals(p: LabradorParams) -> list[tuple[int, int]]:
+    """The coefficient-offset intervals the protocol reads, in the
+    structs.rs:55-144 layout with its quirks (``labrador_tpu/crs.py``
+    ``_used_intervals``): the B stride has no factor d (structs.rs:82), so
+    consecutive B matrices overlap and a long gap that nothing reads lies
+    between the last B coefficient read and _off_c; the C/D column offsets
+    multiply by t_1 where C has t_2 digits (structs.rs:106), so C reads may
+    run past _off_d into D's region."""
+    size_b = p.kappa_1 * p.kappa
+    off_b = p.kappa * p.n * p.d
+    off_c = off_b + (p.r * p.t_1) * size_b * p.d
+    n_tri = p.r * (p.r + 1) // 2
+    off_d = off_c + n_tri * (p.kappa_2 * p.d)
+    b_end = off_b + (p.r * p.t_1 - 1) * size_b + p.kappa_1 * p.kappa * p.d
+    c_end = off_c + ((p.t_2 - 1) + p.t_1 * (n_tri - 1) + 1) * p.kappa_2 * p.d
+    d_end = off_d + ((p.t_1 - 1) + p.t_1 * (n_tri - 1) + 1) * p.kappa_2 * p.d
+    return [(0, b_end), (off_c, max(c_end, d_end))]
+
+
+@dataclass(frozen=True, eq=False)
+class MaterializedCRS(_CrsLayout):
+    """Reference-parity CRS: the coefficients the reference's lazy oracle
+    draws (``CRS::generate_random_coeff``, structs.rs:147-171, bit for bit:
+    ``native/chacha_compat.cpp``), generated on the host and held as one
+    flat int32 table of residues in [0, q) on the caller's device.  Only
+    the intervals the protocol reads are generated (``_used_intervals``);
+    the gaps between them hold zeros, and a read beyond the table gives 0,
+    as the JAX class's ``jnp.take(..., mode="fill", fill_value=0)``.
+    ``key`` is the FS salt: the first 8 bytes of the base seed as two
+    big-endian words, as in the JAX class.  On the card the commitment
+    kernels read the table (their table modes)."""
+
+    coeffs: torch.Tensor         # (total,) int32 residues in [0, q)
+    key: tuple[int, int]
+    params: LabradorParams
+
+    @classmethod
+    def create_chacha(cls, params: LabradorParams, base_seed: bytes,
+                      device="cuda") -> "MaterializedCRS":
+        """Every protocol-read coefficient from ``base_seed`` exactly as
+        the reference's oracle draws it.  Small q only: the reference runs
+        at no big modulus."""
+        from . import native
+        if len(base_seed) != 32:
+            raise ValueError("base_seed must be 32 bytes")
+        if is_big(params.q):
+            raise ValueError(f"no reference-parity CRS at q = {params.q}: "
+                             f"reference parity exists at small q only")
+        intervals = _used_intervals(params)
+        coeffs = torch.zeros(intervals[-1][1], dtype=torch.int32,
+                             device=device)
+        for lo, hi in intervals:
+            vals = native.crs_coeffs(base_seed, lo, hi - lo, params.q)
+            coeffs[lo:hi] = torch.from_numpy(vals.astype("int32")).to(device)
+        key = (int.from_bytes(base_seed[:4], "big"),
+               int.from_bytes(base_seed[4:8], "big"))
+        return cls(coeffs=coeffs, key=key, params=params)
+
+    def draw(self, offsets: torch.Tensor) -> torch.Tensor:
+        """Table entries at int64 ``offsets`` (any shape) as int64
+        residues, 0 beyond the table.  The offsets must lie on the
+        table's device."""
+        if offsets.device != self.coeffs.device:
+            raise ValueError(f"offsets on {offsets.device}, the CRS table "
+                             f"on {self.coeffs.device}")
+        inside = offsets < self.coeffs.numel()
+        vals = torch.take(self.coeffs, torch.where(inside, offsets, 0))
+        return torch.where(inside, vals, 0).to(torch.int64)

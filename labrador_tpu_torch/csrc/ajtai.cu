@@ -10,6 +10,9 @@
 // the kappa axis, the rows of a (dp, rows) mesh; out (r_eff, rows, d)),
 // the TPU's per-device A row block of the JAX package's sharded Ajtai;
 // row0 = 0, rows = kappa is the whole commitment.
+// Table mode (ajtai_commit_table_launch, small q only): the entries of A
+// read from a crs.MaterializedCRS's table at the same offsets (TableSrc,
+// threefry.cuh) instead of generated; the rest is the same.
 //
 // One GEMM per block, with many right-hand sides:
 //     t^T (64 r_eff x kappa) = S (64 r_eff x 64 n) . A^T (64 n x kappa),
@@ -192,13 +195,14 @@ struct AjtaiSmem {
 // s[j][l])[k] mod q, row < rows.  s: (nrhs, L, D) residues in [0, q) or signed values of magnitude
 // at most q/2 (centred alike); grid (splits, row blocks, rhs groups); a
 // block of R_T * G * (4 / MT) * LG warps.
-template <bool BIG>
+// src(offset) is the CRS entry there (ThreefrySrc or TableSrc).
+template <bool BIG, class Src>
 __global__ void __launch_bounds__(AjtaiMode<BIG>::WARPS * 32,
                                   AjtaiMode<BIG>::MIN_BLOCKS)
 ajtai_mma_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
                  int nrhs, int L, int rows, int row0, int64_t q,
-                 uint64_t barrett_m, uint32_t k0, uint32_t k1, int R_T, int G,
-                 int LG, int l_per_split) {
+                 uint64_t barrett_m, Src src, int R_T, int G, int LG,
+                 int l_per_split) {
   using M = AjtaiMode<BIG>;
   constexpr int EL = M::EL, DL = M::DL, MT = M::MT, LC = M::LC;
   constexpr int MS = 4 / MT;             // warps per (row tile, vector)
@@ -265,9 +269,7 @@ ajtai_mma_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
       uint64_t e4[4];
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        e4[jj] = row < rows ? static_cast<uint64_t>(crs_coeff(
-                                  k0, k1, base + jj, uq, barrett_m))
-                            : 0;
+        e4[jj] = row < rows ? src(base + jj) : 0;
       }
       uint32_t limb[EL];
       pack_entry_limbs<EL>(e4, limb);
@@ -405,11 +407,11 @@ ajtai_mma_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
   }
 }
 
-template <bool BIG>
+template <bool BIG, class Src>
 cudaError_t launch_ajtai(const int64_t* dig, int64_t* part, int nrhs, int L,
                          int rows, int row0, int64_t q, uint64_t barrett_m,
-                         uint32_t k0, uint32_t k1, int R_T, int G, int LG,
-                         int splits, int l_per_split, cudaStream_t st) {
+                         Src src, int R_T, int G, int LG, int splits,
+                         int l_per_split, cudaStream_t st) {
   using M = AjtaiMode<BIG>;
   const int warps = R_T * G * (4 / M::MT) * LG;
   if (R_T < 1 || G < 1 || LG < 1 || warps > M::WARPS || splits < 1 ||
@@ -420,16 +422,29 @@ cudaError_t launch_ajtai(const int64_t* dig, int64_t* part, int nrhs, int L,
   static size_t smem_set = 0;      // the attribute, raised when needed
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ajtai_mma_kernel<BIG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ajtai_mma_kernel<BIG, Src>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     smem_set = smem;
   }
   const dim3 grid(splits, (rows + 8 * R_T - 1) / (8 * R_T),
                   (nrhs + G - 1) / G);
-  ajtai_mma_kernel<BIG><<<grid, 32 * warps, smem, st>>>(
-      dig, part, nrhs, L, rows, row0, q, barrett_m, k0, k1, R_T, G, LG,
+  ajtai_mma_kernel<BIG, Src><<<grid, 32 * warps, smem, st>>>(
+      dig, part, nrhs, L, rows, row0, q, barrett_m, src, R_T, G, LG,
       l_per_split);
+  return cudaGetLastError();
+}
+
+// The split reduction into out (r_eff, kappa, D) after the kernel's
+// launch, or the launch's error.
+cudaError_t reduce_ajtai(cudaError_t err, const int64_t* part, int64_t* out,
+                         int r_eff, int kappa, int splits, int64_t q,
+                         cudaStream_t st) {
+  if (err != cudaSuccess) return err;
+  const int64_t total = static_cast<int64_t>(r_eff) * kappa * D;
+  reduce_splits_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0,
+                         st>>>(part, out, splits, total, q);
   return cudaGetLastError();
 }
 
@@ -447,19 +462,37 @@ extern "C" int ajtai_commit_launch(const int64_t* s, int64_t* part,
                                    int rhs_group, int l_groups, int splits,
                                    int l_per_split, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
+  const ThreefrySrc src{k0, k1, static_cast<uint64_t>(q), barrett_m};
+  const cudaError_t err =
       q <= SMALL_Q_MAX
           ? launch_ajtai<false>(s, part, r_eff, n, kappa, row0, q, barrett_m,
-                                k0, k1, row_tiles, rhs_group, l_groups,
-                                splits, l_per_split, st)
+                                src, row_tiles, rhs_group, l_groups, splits,
+                                l_per_split, st)
           : launch_ajtai<true>(s, part, r_eff, n, kappa, row0, q, barrett_m,
-                               k0, k1, row_tiles, rhs_group, l_groups, splits,
+                               src, row_tiles, rhs_group, l_groups, splits,
                                l_per_split, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t total = static_cast<int64_t>(r_eff) * kappa * D;
-  reduce_splits_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0,
-                         st>>>(part, out, splits, total, q);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(reduce_ajtai(err, part, out, r_eff, kappa, splits,
+                                       q, st));
+}
+
+// The table mode: A's entries read from the table coeffs[0 .. total) of a
+// crs.MaterializedCRS.  Small q only (cudaErrorInvalidValue above it).
+extern "C" int ajtai_commit_table_launch(const int64_t* s, int64_t* part,
+                                         int64_t* out, int r_eff, int n,
+                                         int kappa, int row0, int64_t q,
+                                         const int32_t* coeffs,
+                                         uint64_t total, int row_tiles,
+                                         int rhs_group, int l_groups,
+                                         int splits, int l_per_split,
+                                         void* stream) {
+  if (q > SMALL_Q_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // barrett_m 0: only the big-q flush reads it
+  const cudaError_t err = launch_ajtai<false>(
+      s, part, r_eff, n, kappa, row0, q, 0, TableSrc{coeffs, total},
+      row_tiles, rhs_group, l_groups, splits, l_per_split, st);
+  return static_cast<int>(reduce_ajtai(err, part, out, r_eff, kappa, splits,
+                                       q, st));
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -16,6 +16,8 @@
 // on the H100 is Threefry and the per-entry work on the CUDA cores.  At
 // kappa_2 = 16 (the folded instances) a block's 8 warps are 2 row tiles
 // times 4 l-groups over L ~ 10^5 ring elements.
+// Table mode (cd_sum_table_launch): the entries read from a
+// crs.MaterializedCRS's table at the same offsets.
 // Range mode: the stream entries l0 .. l0 + L - 1 only (one shard of the
 // (tri, k) stream on a (dp, rows) mesh, as the JAX package's
 // _cd_sharded_partial cuts it), lin = l0 + l for the l-th local digit;
@@ -54,7 +56,24 @@ extern "C" int cd_sum_launch(const int64_t* dig, int64_t* part, int64_t* out,
                              int groups, int splits, int l_per_split,
                              void* stream) {
   const CdOffset off{base, t_used, t1, kappa2, l0};
+  const ThreefrySrc src{k0, k1, static_cast<uint64_t>(q), barrett_m};
   return static_cast<int>(launch_mma_stream(
-      dig, part, out, bad, L, kappa2, q, barrett_m, k0, k1, off, digit_limbs,
-      tiles, groups, splits, l_per_split, static_cast<cudaStream_t>(stream)));
+      dig, part, out, bad, L, kappa2, q, src, off, digit_limbs, tiles,
+      groups, splits, l_per_split, static_cast<cudaStream_t>(stream)));
+}
+
+// The table mode: C/D entries read from the table coeffs[0 .. total) of a
+// crs.MaterializedCRS (small q only; a C read past the table gives 0).
+extern "C" int cd_sum_table_launch(const int64_t* dig, int64_t* part,
+                                   int64_t* out, int* bad, int L, int l0,
+                                   int t_used, int t1, int kappa2, int64_t q,
+                                   uint64_t base, const int32_t* coeffs,
+                                   uint64_t total, int digit_limbs, int tiles,
+                                   int groups, int splits, int l_per_split,
+                                   void* stream) {
+  const CdOffset off{base, t_used, t1, kappa2, l0};
+  return static_cast<int>(launch_mma_stream(
+      dig, part, out, bad, L, kappa2, q, TableSrc{coeffs, total}, off,
+      digit_limbs, tiles, groups, splits, l_per_split,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -75,6 +75,14 @@
 // plus the Barrett reduction and the limb split, on the CUDA cores; the
 // tensor-core products are a few percent of that, global traffic only the
 // digit stream.
+//
+// Table mode (Src = TableSrc, small q only): each entry is read from the
+// flat table of a crs.MaterializedCRS at the same offset instead of
+// generated; everything after the entry (limbs, products, flushes) is the
+// same.  Each thread reads its fragment's 4 consecutive entries with 4
+// scalar loads; B matrices that overlap in the layout (structs.rs:82: the
+// stride kappa_1 * kappa has no factor d) read the same entries many
+// times, and their distinct entries fit the 50 MB L2 at 2^14 (41.7 MB).
 #pragma once
 
 #include "threefry.cuh"
@@ -176,13 +184,13 @@ union MmaShared {
 
 // part[s][row][k] = (sum over split s of M(l, row) (*) dig[l])[k] mod q.
 // EL entry limbs (2: small q, 5: big q), DL digit limbs; off.stream(l) +
-// off.row(row) the CRS offset of coefficient 0 of M(l, row).
-template <int EL, int DL, class Off>
+// off.row(row) the CRS offset of coefficient 0 of M(l, row), src(offset)
+// the entry there (threefry.cuh: ThreefrySrc or TableSrc).
+template <int EL, int DL, class Off, class Src>
 __global__ void __launch_bounds__(MMA_MAX_WARPS * 32)
 mma_stream_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
-                  int* __restrict__ bad, int L, int rows, int64_t q,
-                  uint64_t barrett_m, uint32_t k0, uint32_t k1, Off off,
-                  int tiles, int l_per_split) {
+                  int* __restrict__ bad, int L, int rows, int64_t q, Src src,
+                  Off off, int tiles, int l_per_split) {
   constexpr int NW = EL + DL - 1;  // limb weights
   // the largest |digit| that DL signed limbs hold for x and -x alike
   constexpr int64_t cover = 127 * ((int64_t{1} << (8 * DL)) - 1) / 255;
@@ -270,9 +278,7 @@ mma_stream_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
           uint64_t e[4];
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            e[j] = row_ok ? static_cast<uint64_t>(crs_coeff(
-                       k0, k1, base + i0 + j, uq, barrett_m))
-                          : 0;
+            e[j] = row_ok ? src(base + i0 + j) : 0;
           }
           pack_entry_limbs<EL>(e, bl[r]);
         }
@@ -352,15 +358,16 @@ mma_stream_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
   }
 }
 
-template <int EL, int DL, class Off>
+template <int EL, int DL, class Off, class Src>
 cudaError_t launch_mma(const int64_t* dig, int64_t* part, int* bad, int L,
-                       int rows, int64_t q, uint64_t barrett_m, uint32_t k0,
-                       uint32_t k1, Off off, int tiles, int groups,
-                       int splits, int l_per_split, cudaStream_t stream) {
+                       int rows, int64_t q, Src src, Off off, int tiles,
+                       int groups, int splits, int l_per_split,
+                       cudaStream_t stream) {
   const dim3 grid(splits, (rows + 8 * tiles - 1) / (8 * tiles));
-  mma_stream_kernel<EL, DL, Off><<<grid, 32 * tiles * groups, 0, stream>>>(
-      dig, part, bad, L, rows, q, barrett_m, k0, k1, off, tiles,
-      l_per_split);
+  mma_stream_kernel<EL, DL, Off, Src>
+      <<<grid, 32 * tiles * groups, 0, stream>>>(dig, part, bad, L, rows, q,
+                                                 src, off, tiles,
+                                                 l_per_split);
   return cudaGetLastError();
 }
 
@@ -368,12 +375,11 @@ cudaError_t launch_mma(const int64_t* dig, int64_t* part, int* bad, int L,
 // reduction into out (rows, D); *bad is zeroed first and set for a digit
 // beyond the limbs.  Returns the first launch error, or
 // cudaErrorInvalidValue for a mode or a shape the kernel does not take
-// (the wrappers raise before that).
-template <class Off>
+// (the wrappers raise before that; a TableSrc at big q is one).
+template <class Off, class Src>
 cudaError_t launch_mma_stream(const int64_t* dig, int64_t* part,
                               int64_t* out, int* bad, int L, int rows,
-                              int64_t q, uint64_t barrett_m, uint32_t k0,
-                              uint32_t k1, Off off, int digit_limbs,
+                              int64_t q, Src src, Off off, int digit_limbs,
                               int tiles, int groups, int splits,
                               int l_per_split, cudaStream_t st) {
   if (tiles < 1 || groups < 1 || tiles * groups > MMA_MAX_WARPS ||
@@ -385,13 +391,12 @@ cudaError_t launch_mma_stream(const int64_t* dig, int64_t* part,
   if (err != cudaSuccess) return err;
   err = cudaErrorInvalidValue;
 #define LAB_MMA(EL, DL)                                                  \
-  err = launch_mma<EL, DL, Off>(dig, part, bad, L, rows, q, barrett_m, k0, \
-                                k1, off, tiles, groups, splits, l_per_split, \
-                                st)
+  err = launch_mma<EL, DL, Off, Src>(dig, part, bad, L, rows, q, src, off, \
+                                     tiles, groups, splits, l_per_split, st)
   if (q <= SMALL_Q_MAX) {
     if (digit_limbs == 1) LAB_MMA(2, 1);
     else if (digit_limbs == 2) LAB_MMA(2, 2);
-  } else {
+  } else if constexpr (Src::BIG_OK) {
     if (digit_limbs == 1) LAB_MMA(5, 1);
     else if (digit_limbs == 2) LAB_MMA(5, 2);
     else if (digit_limbs == 3) LAB_MMA(5, 3);

@@ -80,6 +80,33 @@ __device__ __forceinline__ int64_t crs_coeff(uint32_t k0, uint32_t k1,
       (static_cast<uint64_t>(x0) << 32) | x1, q, barrett_m));
 }
 
+// The two sources of CRS entries, a template parameter of the commitment
+// kernels: each returns the entry at a 64-bit offset as a residue in
+// [0, q).  ThreefrySrc expands the virtual CRS (crs.CRS) in registers;
+// TableSrc reads the flat table of crs.MaterializedCRS (int32 residues,
+// the reference's ChaCha20 coefficients), 0 beyond its `total` entries as
+// the table's draw gives (the C reads may run past the D region,
+// structs.rs:106).  The table holds residues already, so it needs no
+// reduction; it exists at small q only (create_chacha refuses big q), so
+// the kernels take TableSrc in their small-q modes only (BIG_OK).
+struct ThreefrySrc {
+  static constexpr bool BIG_OK = true;
+  uint32_t k0, k1;
+  uint64_t q, barrett_m;
+  __device__ __forceinline__ uint64_t operator()(uint64_t off) const {
+    return static_cast<uint64_t>(crs_coeff(k0, k1, off, q, barrett_m));
+  }
+};
+
+struct TableSrc {
+  static constexpr bool BIG_OK = false;
+  const int32_t* coeffs;
+  uint64_t total;
+  __device__ __forceinline__ uint64_t operator()(uint64_t off) const {
+    return off < total ? static_cast<uint64_t>(__ldg(coeffs + off)) : 0;
+  }
+};
+
 // v mod q in [0, q) for |v| < 2^73 (|v >> 64| <= 2^9): v = hi 2^64 + lo is
 // congruent to hi * c64 + lo with c64 = 2^64 mod q < 2^33, so every term
 // stays below 2^43 in int64.

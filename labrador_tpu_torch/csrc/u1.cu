@@ -8,8 +8,9 @@
 // t_dig (t_1, r, kappa, d) with m = i * t_1 + k).  B_m[row][col][c] sits at
 //     off_b + m * kappa_1 * kappa + row * kappa * d + col * d + c
 // (structs.rs:74-88, the B stride without a factor d kept as in the
-// reference).  Range mode: the columns col0 .. col0 + ncols - 1 of every
-// B_m only (one shard of the kappa contraction on a (dp, rows) mesh, the
+// reference).  Table mode (u1_bterm_table_launch): the entries read from
+// a crs.MaterializedCRS's table at the same offsets, small q only.  Range
+// mode: the columns col0 .. col0 + ncols - 1 of every B_m only (one shard of the kappa contraction on a (dp, rows) mesh, the
 // JAX package's per-device B column block), a stream over l = m * ncols +
 // lc with col = col0 + lc; the digits are that column block of t_dig, and
 // the result is this shard's partial of the B-term.  ncols = kappa, col0
@@ -51,8 +52,26 @@ extern "C" int u1_bterm_launch(const int64_t* t_stream, int64_t* part,
                                int digit_limbs, int tiles, int groups,
                                int splits, int l_per_split, void* stream) {
   const U1Offset off{off_b, ncols, kappa, kappa1, col0};
+  const ThreefrySrc src{k0, k1, static_cast<uint64_t>(q), barrett_m};
   return static_cast<int>(launch_mma_stream(
-      t_stream, part, out, bad, m_total * ncols, kappa1, q, barrett_m, k0, k1,
-      off, digit_limbs, tiles, groups, splits, l_per_split,
+      t_stream, part, out, bad, m_total * ncols, kappa1, q, src, off,
+      digit_limbs, tiles, groups, splits, l_per_split,
       static_cast<cudaStream_t>(stream)));
+}
+
+// The table mode: B entries read from the table coeffs[0 .. total) of a
+// crs.MaterializedCRS (small q only).
+extern "C" int u1_bterm_table_launch(const int64_t* t_stream, int64_t* part,
+                                     int64_t* out, int* bad, int m_total,
+                                     int ncols, int kappa, int kappa1,
+                                     int col0, int64_t q, uint64_t off_b,
+                                     const int32_t* coeffs, uint64_t total,
+                                     int digit_limbs, int tiles, int groups,
+                                     int splits, int l_per_split,
+                                     void* stream) {
+  const U1Offset off{off_b, ncols, kappa, kappa1, col0};
+  return static_cast<int>(launch_mma_stream(
+      t_stream, part, out, bad, m_total * ncols, kappa1, q,
+      TableSrc{coeffs, total}, off, digit_limbs, tiles, groups, splits,
+      l_per_split, static_cast<cudaStream_t>(stream)));
 }

@@ -17,7 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .crs import CRS
+from .crs import CRS, MaterializedCRS
 from .keys import Key
 from .params import LabradorParams
 from .recursion import FoldedState, RecursionLayout
@@ -46,6 +46,16 @@ def crs_from_words(words, params: LabradorParams) -> CRS:
     """A CRS from the JAX CRS's (2,) uint32 ``key`` array."""
     w = np.asarray(words, np.uint32).reshape(2)
     return CRS(key=(int(w[0]), int(w[1])), params=params)
+
+
+def materialized_crs_from_numpy(coeffs, key, params: LabradorParams,
+                                device="cuda") -> MaterializedCRS:
+    """A MaterializedCRS from a JAX ``MaterializedCRS``'s ``coeffs`` table
+    and its (2,) uint32 ``key``."""
+    w = np.asarray(key, np.uint32).reshape(2)
+    table = torch.tensor(np.asarray(coeffs, np.int32), device=device)
+    return MaterializedCRS(coeffs=table, key=(int(w[0]), int(w[1])),
+                           params=params)
 
 
 def state_from_numpy(fields: dict, device="cuda") -> State:

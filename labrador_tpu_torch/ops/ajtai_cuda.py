@@ -12,9 +12,12 @@ takes the products on int8 tensor cores: CRS entries as
 applied to the block's ``rhs_group`` witness vectors (``launch_shape``).
 The range mode (``rows`` given) computes the rows row0 .. row0 + rows - 1
 of A only, one shard of the kappa axis on a (dp, rows) mesh; its launches
-count in ``KERNEL_RANGE`` / ``KERNEL_RANGE_BIG``.  The wrapper launches
-the kernel for CUDA tensors and takes the plain version only for CPU
-tensors.
+count in ``KERNEL_RANGE`` / ``KERNEL_RANGE_BIG``.  For a
+``crs.MaterializedCRS`` the kernel reads A from its table (the table mode,
+small q only, whole and ranged, launches counted in ``KERNEL_TABLE``);
+a Threefry ``crs.CRS`` takes the modes above (``ring_stream.entry_table``
+decides, and raises for anything else).  The wrapper launches the kernel
+for CUDA tensors and takes the plain version only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 
 from . import cuda_lib
 from .ring_stream import (barrett_m, check_big_operand, check_q,
-                          ring_stream_plain)
+                          entry_table, ring_stream_plain)
 from .zq import is_big
 
 KERNEL = cuda_lib.KernelInfo(
@@ -44,6 +47,10 @@ KERNEL_RANGE_BIG = cuda_lib.KernelInfo(
     name="ajtai_commit_range_bigq",
     source="labrador_tpu_torch/csrc/ajtai.cu",
     replaces="labrador_tpu/ops/ajtai_pallas.py:173")
+KERNEL_TABLE = cuda_lib.KernelInfo(
+    name="ajtai_commit_table",
+    source="labrador_tpu_torch/csrc/ajtai.cu",
+    replaces="labrador_tpu/ops/ajtai_pallas.py:234")
 
 # The kernel's limbs, modes and launch constants (csrc/ajtai.cu).
 SMALL_LIMBS = 2        # entries below q <= 32513; witness |x| <= q/2
@@ -169,6 +176,7 @@ def _launch(crs, witness: torch.Tensor, row0: int,
             rows: int | None) -> torch.Tensor:
     p = crs.params
     check_q(p.q, p.d)
+    table = entry_table(crs, witness.device)
     ranged = rows is not None
     rows = _row_range(p, row0, rows)
     r_eff = witness.shape[0]
@@ -185,14 +193,22 @@ def _launch(crs, witness: torch.Tensor, row0: int,
     part = torch.empty((splits, r_eff, rows, p.d), dtype=torch.int64,
                        device=witness.device)
     lib = cuda_lib.load().lib
-    err = lib.ajtai_commit_launch(
-        witness.data_ptr(), part.data_ptr(), out.data_ptr(), r_eff, p.n,
-        rows, row0, p.q, barrett_m(p.q), crs.key[0], crs.key[1], row_tiles,
-        group, l_groups, splits, l_per_split,
-        cuda_lib.stream_ptr(witness.device))
-    cuda_lib.check(err)
-    if ranged:
-        (KERNEL_RANGE_BIG if is_big(p.q) else KERNEL_RANGE).launches += 1
+    stream = cuda_lib.stream_ptr(witness.device)
+    if table is not None:
+        err = lib.ajtai_commit_table_launch(
+            witness.data_ptr(), part.data_ptr(), out.data_ptr(), r_eff, p.n,
+            rows, row0, p.q, table.data_ptr(), table.numel(), row_tiles,
+            group, l_groups, splits, l_per_split, stream)
+        info = KERNEL_TABLE
     else:
-        (KERNEL_BIG if is_big(p.q) else KERNEL).launches += 1
+        err = lib.ajtai_commit_launch(
+            witness.data_ptr(), part.data_ptr(), out.data_ptr(), r_eff, p.n,
+            rows, row0, p.q, barrett_m(p.q), crs.key[0], crs.key[1],
+            row_tiles, group, l_groups, splits, l_per_split, stream)
+        if ranged:
+            info = KERNEL_RANGE_BIG if is_big(p.q) else KERNEL_RANGE
+        else:
+            info = KERNEL_BIG if is_big(p.q) else KERNEL
+    cuda_lib.check(err)
+    info.launches += 1
     return out

@@ -17,6 +17,10 @@ The range mode (``length`` given) sums over the stream entries l0 .. l0 +
 length - 1 only, one shard of the (tri, k) stream on a (dp, rows) mesh,
 and returns that shard's partial (zeros for an empty range, with no
 launch); its launches count in ``KERNEL_RANGE`` / ``KERNEL_RANGE_BIG``.
+For a ``crs.MaterializedCRS`` the kernel reads the column vectors from its
+table, 0 past its end (the table mode, small q only, whole and ranged,
+launches counted in ``KERNEL_TABLE``); ``ring_stream.entry_table``
+decides.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .ring_stream import barrett_m, check_q, ring_stream_plain
+from .ring_stream import barrett_m, check_q, entry_table, ring_stream_plain
 from .u1_cuda import (check_limb_mode, digit_limbs, launch_shape,
                       raise_if_flagged)
 from .zq import is_big
@@ -45,6 +49,10 @@ KERNEL_RANGE_BIG = cuda_lib.KernelInfo(
     name="cd_sum_range_bigq",
     source="labrador_tpu_torch/csrc/cd.cu",
     replaces="labrador_tpu/ops/cd_pallas.py:128")
+KERNEL_TABLE = cuda_lib.KernelInfo(
+    name="cd_sum_table",
+    source="labrador_tpu_torch/csrc/cd.cu",
+    replaces="labrador_tpu/ops/cd_pallas.py:183")
 
 
 def cd_sum(crs, dig_stream: torch.Tensor, base_off: int, t_used: int,
@@ -111,6 +119,7 @@ def _launch(crs, dig_stream: torch.Tensor, base_off: int, t_used: int,
             digit_base: int, l0: int, length: int | None) -> torch.Tensor:
     p = crs.params
     check_q(p.q, p.d)
+    table = entry_table(crs, dig_stream.device)
     n_tri = dig_stream.shape[0]
     cuda_lib.require_cuda_operand(dig_stream, "dig_stream",
                                   (n_tri, t_used, p.d))
@@ -129,15 +138,26 @@ def _launch(crs, dig_stream: torch.Tensor, base_off: int, t_used: int,
                       device=dig_stream.device)
     bad = torch.empty((1,), dtype=torch.int32, device=dig_stream.device)
     lib = cuda_lib.load().lib
-    err = lib.cd_sum_launch(
-        dig.data_ptr(), part.data_ptr(), out.data_ptr(), bad.data_ptr(), L,
-        l0, t_used, p.t_1, p.kappa_2, p.q, barrett_m(p.q), base_off,
-        crs.key[0], crs.key[1], n_limbs, tiles, groups, splits, l_per_split,
-        cuda_lib.stream_ptr(dig_stream.device))
-    cuda_lib.check(err)
-    if length is not None:
-        (KERNEL_RANGE_BIG if is_big(p.q) else KERNEL_RANGE).launches += 1
+    stream = cuda_lib.stream_ptr(dig_stream.device)
+    ranged = length is not None
+    if table is not None:
+        err = lib.cd_sum_table_launch(
+            dig.data_ptr(), part.data_ptr(), out.data_ptr(), bad.data_ptr(),
+            L, l0, t_used, p.t_1, p.kappa_2, p.q, base_off, table.data_ptr(),
+            table.numel(), n_limbs, tiles, groups, splits, l_per_split,
+            stream)
+        info = KERNEL_TABLE
     else:
-        (KERNEL_BIG if is_big(p.q) else KERNEL).launches += 1
+        err = lib.cd_sum_launch(
+            dig.data_ptr(), part.data_ptr(), out.data_ptr(), bad.data_ptr(),
+            L, l0, t_used, p.t_1, p.kappa_2, p.q, barrett_m(p.q), base_off,
+            crs.key[0], crs.key[1], n_limbs, tiles, groups, splits,
+            l_per_split, stream)
+        if ranged:
+            info = KERNEL_RANGE_BIG if is_big(p.q) else KERNEL_RANGE
+        else:
+            info = KERNEL_BIG if is_big(p.q) else KERNEL
+    cuda_lib.check(err)
+    info.launches += 1
     raise_if_flagged(bad, dig, p.q, n_limbs)
     return out

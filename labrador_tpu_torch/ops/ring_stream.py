@@ -15,7 +15,8 @@ kernels against it.  The operands may be
 residues in [0, q) or signed values of magnitude at most q/2 (the big-q
 convention of the JAX package: signed digits and witness); the kernel and
 this version centre them alike.  Also the modulus check of the three
-CUDA wrappers, the big-q operand check of the Ajtai wrapper, and the
+CUDA wrappers, their choice of mode by the CRS's type (``entry_table``:
+Threefry or table), the big-q operand check of the Ajtai wrapper, and the
 Barrett constant of the kernels' reduction of a Threefry word.
 """
 
@@ -25,6 +26,7 @@ from typing import Callable
 
 import torch
 
+from ..crs import CRS, MaterializedCRS
 from .modmath import P_MAX, Q_BIG_MAX, matmul_mod, mod_pos
 from .ntt import make_plan
 from .zq import fold_res_modq, is_big, to_res, to_signed_small
@@ -101,6 +103,31 @@ def check_big_operand(x: torch.Tensor, q: int, name: str) -> None:
         if lo < -(q // 2) or hi >= q:
             raise ValueError(f"{name} has values in [{lo}, {hi}], outside "
                              f"[-q/2, q) for the big-q kernel")
+
+
+def entry_table(crs, device: torch.device) -> torch.Tensor | None:
+    """Which mode of a commitment kernel a CRS takes on ``device``: the
+    table of a ``crs.MaterializedCRS`` (its table mode), or None for a
+    Threefry ``crs.CRS`` (the mode that expands it in the kernel).  Raises
+    for any other object, so that no such CRS reaches a Threefry launch
+    with its key, and for a table on another device.  There is no big-q
+    table mode: ``MaterializedCRS.create_chacha`` refuses big q."""
+    if isinstance(crs, MaterializedCRS):
+        if crs.coeffs.device != device:
+            raise ValueError(f"the CRS table lies on {crs.coeffs.device}, "
+                             f"the operands on {device}")
+        if is_big(crs.params.q):
+            raise ValueError(f"no table mode at q = {crs.params.q}: the "
+                             f"reference-parity CRS exists at small q only")
+        if crs.coeffs.dtype != torch.int32 or crs.coeffs.dim() != 1 \
+                or not crs.coeffs.is_contiguous():
+            raise ValueError("the CRS table must be a contiguous 1-D int32 "
+                             "tensor")
+        return crs.coeffs
+    if isinstance(crs, CRS):
+        return None
+    raise TypeError(f"no commitment kernel for a CRS of type "
+                    f"{type(crs).__name__}")
 
 
 def barrett_m(q: int) -> int:

@@ -21,7 +21,10 @@ through their own offset; its limb scheme and launch shape live here.
 The range mode (``ncols`` given) sums over the columns col0 .. col0 +
 ncols - 1 of every B_m only, one shard of the kappa contraction on a (dp,
 rows) mesh, and returns that shard's partial; its launches count in
-``KERNEL_RANGE`` / ``KERNEL_RANGE_BIG``.
+``KERNEL_RANGE`` / ``KERNEL_RANGE_BIG``.  For a ``crs.MaterializedCRS``
+the kernel reads the B entries from its table (the table mode, small q
+only, whole and ranged, launches counted in ``KERNEL_TABLE``), with
+the same digit check; ``ring_stream.entry_table`` decides.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .ring_stream import barrett_m, check_q, ring_stream_plain
+from .ring_stream import barrett_m, check_q, entry_table, ring_stream_plain
 from .zq import is_big, to_signed_small
 
 KERNEL = cuda_lib.KernelInfo(
@@ -48,6 +51,10 @@ KERNEL_RANGE_BIG = cuda_lib.KernelInfo(
     name="u1_bterm_range_bigq",
     source="labrador_tpu_torch/csrc/u1.cu",
     replaces="labrador_tpu/ops/u1_pallas.py:104")
+KERNEL_TABLE = cuda_lib.KernelInfo(
+    name="u1_bterm_table",
+    source="labrador_tpu_torch/csrc/u1.cu",
+    replaces="labrador_tpu/ops/u1_pallas.py:164")
 
 
 def _col_range(p, col0: int, ncols: int | None) -> int:
@@ -205,6 +212,7 @@ def _launch(crs, t_dig: torch.Tensor, col0: int,
             ncols: int | None) -> torch.Tensor:
     p = crs.params
     check_q(p.q, p.d)
+    table = entry_table(crs, t_dig.device)
     ranged = ncols is not None
     ncols = _col_range(p, col0, ncols)
     cuda_lib.require_cuda_operand(t_dig, "t_dig", (p.t_1, p.r, p.kappa, p.d))
@@ -222,15 +230,25 @@ def _launch(crs, t_dig: torch.Tensor, col0: int,
                       device=t_dig.device)
     bad = torch.empty((1,), dtype=torch.int32, device=t_dig.device)
     lib = cuda_lib.load().lib
-    err = lib.u1_bterm_launch(
-        stream.data_ptr(), part.data_ptr(), out.data_ptr(), bad.data_ptr(),
-        m_total, ncols, p.kappa, p.kappa_1, col0, p.q, barrett_m(p.q),
-        crs._off_b, crs.key[0], crs.key[1], n_limbs, tiles, groups, splits,
-        l_per_split, cuda_lib.stream_ptr(t_dig.device))
-    cuda_lib.check(err)
-    if ranged:
-        (KERNEL_RANGE_BIG if is_big(p.q) else KERNEL_RANGE).launches += 1
+    cuda_stream = cuda_lib.stream_ptr(t_dig.device)
+    if table is not None:
+        err = lib.u1_bterm_table_launch(
+            stream.data_ptr(), part.data_ptr(), out.data_ptr(),
+            bad.data_ptr(), m_total, ncols, p.kappa, p.kappa_1, col0, p.q,
+            crs._off_b, table.data_ptr(), table.numel(), n_limbs, tiles,
+            groups, splits, l_per_split, cuda_stream)
+        info = KERNEL_TABLE
     else:
-        (KERNEL_BIG if is_big(p.q) else KERNEL).launches += 1
+        err = lib.u1_bterm_launch(
+            stream.data_ptr(), part.data_ptr(), out.data_ptr(),
+            bad.data_ptr(), m_total, ncols, p.kappa, p.kappa_1, col0, p.q,
+            barrett_m(p.q), crs._off_b, crs.key[0], crs.key[1], n_limbs,
+            tiles, groups, splits, l_per_split, cuda_stream)
+        if ranged:
+            info = KERNEL_RANGE_BIG if is_big(p.q) else KERNEL_RANGE
+        else:
+            info = KERNEL_BIG if is_big(p.q) else KERNEL
+    cuda_lib.check(err)
+    info.launches += 1
     raise_if_flagged(bad, stream, p.q, n_limbs)
     return out
