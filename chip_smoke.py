@@ -20,7 +20,14 @@ a world of 4 spawned ranks sharing the card over gloo proves config 1 on
 a dp 2 x rows 2 mesh against the JAX golden digests (both moduli, both
 oracles), 2^14 on rows 4 and BASELINE.json config 4 (2^20, big q) on rows
 2 against single-rank runs, the sharded verifier beside, each rank's
-launch counts showing the range modes.
+launch counts showing the range modes.  Last, batched proving
+(``prover.prove_batch``, ``verifier.verify_report_batch``): the batch
+modes of kernels 2-4 bit-equal to their plain versions and to single
+launches (config 1 at B = 3, 2^14 at B = 4, both moduli, whole and shard
+0 of 4), 8 2^14 ``--big-q`` instances and 16 config-1 instances (both
+oracles) proved in one batch, each equal to its single prove with one
+launch a call site, and the port's bench (``python -m
+labrador_tpu_torch.bench``) in its own process.
 
 Usage (from the repository root, on a machine with one CUDA card):
     python3 chip_smoke.py
@@ -30,7 +37,8 @@ CUDA device it exits non-zero before printing any result.  The line before
 the last lists each kernel with its launches in the 2^14 runs of the main
 paths (``-R``, ``--fs`` and ``--phases`` at its modulus; for a range mode
 the 2^14 sharded proves, summed over the ranks; for a table mode the
-ChaCha phase's proves and verifies), its time beside the
+ChaCha phase's proves and verifies; for a batch mode the batched proves
+and verifies of the batch phase at its modulus), its time beside the
 plain version's, a library call's and its bound; the last line of
 standard output is the result JSON.  Imports
 nothing of JAX.
@@ -559,14 +567,17 @@ def phase_polymul() -> dict:
 
 def _kernels():
     """Every kernel of the port, each mode of kernels 2-4 apart (small q,
-    big q, the range mode of each, and the table mode)."""
+    big q, the range mode of each, the table mode, and the batch mode at
+    each modulus)."""
     from labrador_tpu_torch.ops import (ajtai_cuda, cd_cuda, polymul_cuda,
                                         u1_cuda)
     mods = (ajtai_cuda, u1_cuda, cd_cuda)
     return ([polymul_cuda.KERNEL] + [m.KERNEL for m in mods]
             + [m.KERNEL_BIG for m in mods] + [m.KERNEL_RANGE for m in mods]
             + [m.KERNEL_RANGE_BIG for m in mods]
-            + [m.KERNEL_TABLE for m in mods])
+            + [m.KERNEL_TABLE for m in mods]
+            + [m.KERNEL_BATCH for m in mods]
+            + [m.KERNEL_BATCH_BIG for m in mods])
 
 
 def _reset_counts() -> None:
@@ -1074,7 +1085,7 @@ def _profile_folded_prove(res, label: str = "2^14 -R") -> None:
     for (_, _, fn), row in pstats.Stats(prof).stats.items():
         cum[fn] = max(cum.get(fn, 0.0), row[3])
     names = ("prove_phase1", "prove_phase2a", "prove_phase2b",
-             "prove_phase3", "sample_challenge", "sample_jl",
+             "prove_phase3", "sample_challenges", "sample_jl",
              "jl_project", "jl_projection", "aggregate_phi_pp",
              "phi_alpha_modq", "_alpha_contract_b", "ajtai_commit",
              "u1_from_digits", "u2_from_digits", "gram_hat")
@@ -1359,7 +1370,11 @@ N_SHARDS = 4
 RANGE_KERNELS = ("ajtai_commit_range", "u1_bterm_range", "cd_sum_range")
 RANGE_BIG_KERNELS = ("ajtai_commit_range_bigq", "u1_bterm_range_bigq",
                      "cd_sum_range_bigq")
-UNRANGED_KERNELS = COMMITMENT_KERNELS + BIG_KERNELS
+BATCH_KERNELS = ("ajtai_commit_batch", "u1_bterm_batch", "cd_sum_batch")
+BATCH_BIG_KERNELS = ("ajtai_commit_batch_bigq", "u1_bterm_batch_bigq",
+                     "cd_sum_batch_bigq")
+UNRANGED_KERNELS = COMMITMENT_KERNELS + BIG_KERNELS + BATCH_KERNELS \
+    + BATCH_BIG_KERNELS
 CONFIG4 = dict(n=128, r=128, kappa=256)   # BASELINE.json config 4, big q
 WORLD = 4
 
@@ -2009,6 +2024,293 @@ def phase_sharded(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# batched proving: the kernels' batch modes, prove_batch, the port's bench
+# ---------------------------------------------------------------------------
+
+BATCH_SHAPES = (("config1", dict(n=2, r=2), 3),
+                ("2^14", dict(n=REAL["n"], r=REAL["r"],
+                              kappa_override=REAL["kappa"]), 4))
+BATCH_REAL = 8                          # the 2^14 --big-q batch
+BATCH_BENCH = 16                        # bench.py's batch, at config 1
+
+
+def _batch_cases(p, B: int, seed: int):
+    """(kernel module, label, batch fn, plain fn, B single launches fn,
+    Work of the batch) of kernels 2-4's batch modes at the shapes of ``p``:
+    B instances of ``_kernel_inputs`` (seeds seed .. seed + B - 1, each its
+    own CRS), whole and as shard 0 of N_SHARDS (every instance the same
+    range, as vmap inside shard_map)."""
+    from labrador_tpu_torch.crs import CRSBatch
+    from labrador_tpu_torch.ops import ajtai_cuda, cd_cuda, u1_cuda
+    from labrador_tpu_torch.protocol import AxisCtx, _stream_shard
+
+    xs = [_kernel_inputs(p, seed + b) for b in range(B)]
+    crs = CRSBatch.stack([x.crs for x in xs], device="cuda")
+    w = torch.stack([x.w for x in xs])
+    t_dig = torch.stack([x.t_dig for x in xs])
+    g_str = torch.stack([x.g_str for x in xs])
+    h_str = torch.stack([x.h_str for x in xs])
+    x0, per = xs[0], p.kappa // N_SHARDS
+
+    def times_b(work: Work) -> Work:
+        return Work(work.nbytes * B, work.int32_ops * B, work.macs * B,
+                    work.limb_products, work.mac_ops)
+
+    cases = []
+    for tag, rng_ in (("", None), (f" shard 0/{N_SHARDS}", (0, per))):
+        row = () if rng_ is None else rng_
+        cases.append((ajtai_cuda, "ajtai r_eff=r" + tag,
+                      lambda row=row: ajtai_cuda.ajtai_commit(crs, w, *row),
+                      lambda row=row: ajtai_cuda.ajtai_commit_plain(crs, w,
+                                                                    *row),
+                      lambda row=row: [ajtai_cuda.ajtai_commit(
+                          x.crs, x.w, *row) for x in xs],
+                      times_b(x0.work(per if row else p.kappa, p.n, p.r,
+                                      x0.w_max, x0.aj_lp))))
+        cases.append((u1_cuda, "u1 B-term" + tag,
+                      lambda row=row: u1_cuda.u1_bterm(crs, t_dig, *row),
+                      lambda row=row: u1_cuda.u1_bterm_plain(crs, t_dig,
+                                                             *row),
+                      lambda row=row: [u1_cuda.u1_bterm(x.crs, x.t_dig,
+                                                        *row) for x in xs],
+                      times_b(x0.work(p.kappa_1, p.r * p.t_1 * (
+                          per if row else p.kappa), 1, p.b_1 // 2))))
+        for label, stream, off, t_used, base in (
+                ("cd D-term (u2)", h_str, crs._off_d, p.t_1, 0),
+                ("cd C-term (u1)", g_str, crs._off_c, p.t_2, p.b_2)):
+            L = stream.shape[1] * t_used
+            cut = () if rng_ is None else _stream_shard(
+                L, AxisCtx(None, N_SHARDS, 0))
+            cases.append((
+                cd_cuda, label + tag,
+                lambda st=stream, o=off, t=t_used, b=base, c=cut:
+                    cd_cuda.cd_sum(crs, st, o, t, b, *c),
+                lambda st=stream, o=off, t=t_used, c=cut:
+                    cd_cuda.cd_sum_plain(crs, st, o, t, *c),
+                lambda st=stream, o=off, t=t_used, b=base, c=cut: [
+                    cd_cuda.cd_sum(x.crs, st[i], o, t, b, *c)
+                    for i, x in enumerate(xs)],
+                times_b(x0.work(p.kappa_2, cut[1] if cut else L, 1,
+                                (base or p.b_1) // 2))))
+    return cases
+
+
+def hold_batch_modes(stats: dict) -> None:
+    """Each batch mode of kernels 2-4 bit-equal to its plain version and
+    to B single launches, at config 1 (B = 3) and 2^14 (B = 4), both
+    moduli, whole and shard 0 of N_SHARDS; timed by CUDA events beside the
+    B single launches, its bound (the single instance's Work times B) and
+    its plain version.  Records each batch mode's error, and the times of
+    its first whole case at 2^14, in ``stats``."""
+    from labrador_tpu_torch.ops.zq import is_big
+    from labrador_tpu_torch.params import LabradorParams
+
+    for extra, qtag in (({}, ""), (BIG_Q, " big-q")):
+        for size, shape, B in BATCH_SHAPES:
+            p = LabradorParams(**shape, **extra)
+            for mod, label, kern, plain, singles, work in _batch_cases(
+                    p, B, 11):
+                got, want, one = kern(), plain(), singles()
+                _sync()
+                err = int(torch.max(torch.abs(got - want))) \
+                    if got.numel() else 0
+                if got.shape != want.shape or err != 0:
+                    raise AssertionError(f"batch {label} at {size}{qtag} B="
+                                         f"{B}: kernel != plain ({err})")
+                if not torch.equal(got, torch.stack(one)):
+                    raise AssertionError(f"batch {label} at {size}{qtag}: "
+                                         f"!= {B} single launches")
+                ms = cuda_ms(kern, 10)
+                singles_ms = cuda_ms(singles, 10)
+                plain_ms = cuda_ms(plain, 1)
+                bound_ms, bound_by = work.bound()
+                log(f"batch {label:26s} {size}{qtag:6s} B={B} "
+                    f"{str(tuple(got.shape)):18s} bit-equal (tolerance 0) "
+                    f"to plain and to {B} single launches; batch {ms:.4f} "
+                    f"ms, {B} single launches {singles_ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms; {work.describe()}; at "
+                    f"{bound_ms / ms:.1%} of the bound")
+                if "shard" in label:
+                    continue
+                info = mod.KERNEL_BATCH_BIG if is_big(p.q) \
+                    else mod.KERNEL_BATCH
+                st = stats.setdefault(info.name, {"max_abs_err": 0})
+                st["max_abs_err"] = max(st["max_abs_err"], err)
+                if size == "2^14" and "ms" not in st:
+                    # no single PyTorch call expands B Threefry CRSs and
+                    # contracts them: library_ms stays null
+                    st.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, library_ms=None)
+
+
+def _batch_run(p, seeds, mode: str, oracle: str, where: str) -> dict:
+    """``prover.prove_batch`` of the CLI's instances at ``seeds`` on the
+    card, its launch counts from 0, every instance equal field by field to
+    its single-instance prove (whose counts, from 0, the batch's must
+    equal: one launch a call site, not one an instance), and
+    ``verify_report_batch`` all true with the same counts as one
+    single-instance verify.  Returns the counts, times and peak memory."""
+    from labrador_tpu_torch import prover, structs, verifier
+    from labrador_tpu_torch.cli import make_instance
+    from labrador_tpu_torch.crs import CRSBatch
+
+    insts = [make_instance(p, s, "cuda") for s in seeds]
+    B = len(insts)
+    w = torch.stack([i[0] for i in insts])
+    st = structs.stack([i[1] for i in insts])
+    crs_b = CRSBatch.stack([i[2] for i in insts], device="cuda")
+    vkeys = [i[3] for i in insts]
+    prover.prove_batch(p, w[:1], structs.take(st, slice(0, 1)), crs_b[0:1],
+                       vkeys[:1], oracle, mode)            # warm-up
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    batch_ms, tr = _host_ms(lambda: prover.prove_batch(
+        p, w, st, crs_b, vkeys, oracle, mode), 1)
+    in_prove = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _reset_counts()
+    verify_ms, rep = _host_ms(lambda: verifier.verify_report_batch(
+        p, st, tr, crs_b, mode), 1)
+    in_verify = _counts()
+    bad = [k for k, v in rep.items() if not bool(v.all())]
+    if bad:
+        raise AssertionError(f"{where}: verify_report_batch fails {bad}")
+
+    def single(i):
+        w1, st1, crs1, kv = insts[i]
+        if oracle == "fs":
+            return prover.prove_fs(p, w1, st1, crs1, mode)
+        return prover.prove(p, w1, st1, crs1, kv, mode)
+
+    single_ms = []
+    for i in range(B):
+        _reset_counts()
+        ms, one = _host_ms(lambda: single(i), 1)
+        one_counts = _counts()
+        single_ms.append(ms)
+        got = structs.take(tr, i)
+        diff = [f for f in one.__dataclass_fields__
+                if not torch.equal(getattr(got, f), getattr(one, f))]
+        if diff:
+            raise AssertionError(f"{where}: instance {i} differs from its "
+                                 f"single prove in {diff}")
+    _reset_counts()
+    verifier.verify_report(p, insts[0][1], structs.take(tr, 0), insts[0][2],
+                           mode)
+    one_verify = _counts()
+    big = p.q > 32513
+    names = (BATCH_BIG_KERNELS, BIG_KERNELS) if big \
+        else (BATCH_KERNELS, COMMITMENT_KERNELS)
+    for counts, ref, what in ((in_prove, one_counts, "prove"),
+                              (in_verify, one_verify, "verify")):
+        _require_launched(counts, names[0], f"{where} {what}")
+        want = [ref[k] for k in names[1]]
+        if [counts[k] for k in names[0]] != want or any(
+                counts[k] for k in names[1]):
+            raise AssertionError(f"{where} {what}: batch launches "
+                                 f"{counts} != one single-instance "
+                                 f"{what}'s {ref}")
+    return dict(B=B, batch_ms=batch_ms, verify_ms=verify_ms,
+                single_ms=single_ms, peak_gb=peak_gb, in_prove=in_prove,
+                in_verify=in_verify, tr=tr)
+
+
+def phase_batch(stats: dict) -> dict:
+    """Batched proving on the card.  The batch modes of kernels 2-4 held
+    (``hold_batch_modes``); ``prove_batch`` of BATCH_REAL 2^14 ``--big-q``
+    instances (n = r = 16, kappa = 256, q = 4294967311: the realistic
+    witness) and of BATCH_BENCH config-1 instances with both oracles
+    (instance 0, seed 42, = the JAX golden digest), each instance = its
+    single prove, ``verify_report_batch`` all true, the launches of
+    kernels 2-4 those of one single-instance prove and verify; then the
+    port's bench, ``python -m labrador_tpu_torch.bench --batch-prove 16
+    --batch-verify 16 --verify-profile --phases``, whose JSON line is
+    printed.  Returns the batch modes' launches in the 2^14 --big-q and the
+    config-1 batches, for the kernels line."""
+    from labrador_tpu_torch import structs
+    from labrador_tpu_torch.cli import make_params
+
+    hold_batch_modes(stats)
+    launches: dict = {}
+    p = make_params(REAL["n"], REAL["r"], REAL["kappa"], False, True)
+    run = _batch_run(p, range(42, 42 + BATCH_REAL), "exact", "interactive",
+                     "2^14 --big-q batch")
+    _add_counts(launches, {k: v for k, v in run["in_prove"].items()
+                           if k in BATCH_BIG_KERNELS})
+    _add_counts(launches, {k: v for k, v in run["in_verify"].items()
+                           if k in BATCH_BIG_KERNELS})
+    B = run["B"]
+    log(f"batch 2^14 --big-q (n={p.n}, r={p.r}, kappa={p.kappa}, q={p.q}) "
+        f"B={B}: every "
+        f"instance == its single prove, verify_report_batch all true; "
+        f"prove_batch {run['batch_ms']:.2f} ms = "
+        f"{B / run['batch_ms'] * 1e3:.2f} proofs/s against {B} single "
+        f"proves {sum(run['single_ms']):.2f} ms = "
+        f"{B / sum(run['single_ms']) * 1e3:.2f} proofs/s (first runs, host "
+        f"clock after sync); verify_report_batch {run['verify_ms']:.2f} ms; "
+        f"peak device memory of the batch prove {run['peak_gb']:.3f} GB; "
+        f"launches prove {_launched(run['in_prove'])}, verify "
+        f"{_launched(run['in_verify'])} (= one single-instance prove's and "
+        f"verify's)")
+    golden = {"interactive": json.loads(GOLDEN.read_text())[
+        "transcript_sha256"], "fs": json.loads(GOLDEN_FS.read_text())[
+            "small_q"]["transcript_sha256"]}
+    p1 = make_params(2, 2)
+    for oracle in ("interactive", "fs"):
+        where = f"config1 batch ({oracle})"
+        run = _batch_run(p1, range(42, 42 + BATCH_BENCH), "reference",
+                         oracle, where)
+        digest = structs.transcript_sha256(structs.take(run["tr"], 0), p1.q)
+        if digest != golden[oracle]:
+            raise AssertionError(f"{where}: instance 0 digest {digest} != "
+                                 f"JAX golden {golden[oracle]}")
+        _add_counts(launches, {k: v for k, v in run["in_prove"].items()
+                               if k in BATCH_KERNELS})
+        _add_counts(launches, {k: v for k, v in run["in_verify"].items()
+                               if k in BATCH_KERNELS})
+        log(f"batch config1 ({oracle}) B={run['B']}: instance 0 == JAX "
+            f"golden, every instance == its single prove, "
+            f"verify_report_batch all true; prove_batch "
+            f"{run['batch_ms']:.2f} ms = "
+            f"{run['B'] / run['batch_ms'] * 1e3:.2f} proofs/s against "
+            f"{sum(run['single_ms']):.2f} ms of single proves; launches "
+            f"prove {_launched(run['in_prove'])}")
+    log(f"batch: batch-mode launches {launches}")
+    phase_bench()
+    return launches
+
+
+def _launched(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def phase_bench() -> None:
+    """The port's bench on the card, in its own process; its stdout's one
+    JSON line is printed here, its stderr's lines after it."""
+    cmd = [sys.executable, "-m", "labrador_tpu_torch.bench",
+           "--batch-prove", str(BATCH_BENCH), "--batch-verify",
+           str(BATCH_BENCH), "--verify-profile", "--phases"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench failed ({proc.returncode}):\n"
+                             f"{proc.stdout}\n{proc.stderr}")
+    lines = proc.stdout.strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench printed {len(lines)} stdout lines")
+    line = json.loads(lines[0])
+    if sorted(line) != ["metric", "unit", "value", "vs_baseline"] \
+            or not line["value"] > 0:
+        raise AssertionError(f"bench line {line}")
+    log(json.dumps(line))
+    for err_line in proc.stderr.strip().splitlines():
+        log(f"bench: {err_line}")
+    log(f"bench: {time.perf_counter() - t0:.2f} s in its own process")
+
+
 def main() -> int:
     t0 = time.perf_counter()
     card = phase_device()
@@ -2034,6 +2336,7 @@ def main() -> int:
     _add_counts(launches, phase_phases_real())
     _add_counts(launches, phase_chacha(stats))
     _add_counts(launches, phase_sharded(card))
+    _add_counts(launches, phase_batch(stats))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.2f} s "
         f"on {card}, the kernels' build included")
     rows = []

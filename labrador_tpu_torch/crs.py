@@ -21,7 +21,10 @@ Matrix shapes (coefficient domain, int64 residues in [0, q)):
 Every fetcher reads through ``draw(offsets)``.  The commitment kernels
 expand their tiles in registers from a ``CRS``'s ``key``, or read a
 ``MaterializedCRS``'s table (their table modes); the fetchers materialize
-tiles for the plain versions, the recursion's streams and the tests.
+tiles for the plain versions, the recursion's streams and the tests.  A
+``CRSBatch`` holds B Threefry CRSs of one parameter set for batched
+proving (the kernels' batch modes); its ``draw`` gives every instance's
+entries, (B,) + the offsets' shape.
 """
 
 from __future__ import annotations
@@ -128,10 +131,12 @@ class _CrsLayout:
     # -- expansion ------------------------------------------------------------
     def _expand(self, start: int, shape: tuple[int, ...],
                 device="cuda") -> torch.Tensor:
-        """Contiguous tile of ``shape`` starting at offset ``start``."""
+        """Contiguous tile of ``shape`` starting at offset ``start`` (of
+        every instance of a ``CRSBatch``: (B,) + shape)."""
         offs = torch.arange(math.prod(shape), dtype=torch.int64,
                             device=device) + start
-        return self.draw(offs).reshape(shape)
+        vals = self.draw(offs)
+        return vals.reshape(vals.shape[:-1] + tuple(shape))
 
     def _expand_dyn(self, base: int, idx0: int, stride0: int,
                     shape: tuple[int, ...], strides: tuple[int, ...],
@@ -162,6 +167,77 @@ class CRS(_CrsLayout):
         """CRS entries at int64 ``offsets`` (any shape): Threefry."""
         return prg.uniform_mod_q(self.key[0], self.key[1], offsets,
                                  self.params.q)
+
+
+@dataclass(frozen=True, eq=False)
+class CRSBatch(_CrsLayout):
+    """B Threefry CRSs of one parameter set: the counterpart of the
+    ``(B, 2)`` CRS keys that the JAX package vmaps over (``bench.py``'s
+    batch measurements, ``parallel/sharded.py``'s dp block).  ``words``
+    holds the B (k0, k1) pairs on the host, ``keys`` the same as a (B, 2)
+    int64 tensor on the batch's device, which the commitment kernels'
+    batch modes read (one key per instance); the layout offsets are
+    shared.  ``batch[b]`` is instance b's ``CRS``.  Only Threefry CRSs
+    batch: a ``MaterializedCRS`` holds one table per process, and the JAX
+    package never vmaps it either."""
+
+    words: tuple[tuple[int, int], ...]
+    keys: torch.Tensor
+    params: LabradorParams
+
+    @classmethod
+    def stack(cls, crss, device="cuda") -> "CRSBatch":
+        """The batch of the given Threefry ``CRS``s (one parameter set)."""
+        crss = list(crss)
+        if not crss:
+            raise ValueError("a CRS batch needs at least one CRS")
+        for c in crss:
+            if type(c) is not CRS:
+                raise TypeError(
+                    f"a CRS batch takes Threefry CRSs only, not "
+                    f"{type(c).__name__}: a MaterializedCRS is one table "
+                    f"a process and is never batched")
+            if c.params != crss[0].params:
+                raise ValueError("a CRS batch takes one parameter set")
+        return cls.from_keys(crss[0].params, [c.key for c in crss], device)
+
+    @classmethod
+    def create(cls, params: LabradorParams, seeds,
+               device="cuda") -> "CRSBatch":
+        """``CRS.create(params, seed)`` for each seed."""
+        return cls.stack([CRS.create(params, s) for s in seeds], device)
+
+    @classmethod
+    def from_keys(cls, params: LabradorParams, keys,
+                  device="cuda") -> "CRSBatch":
+        """From B (k0, k1) uint32 word pairs (a list, or a (B, 2) array or
+        tensor)."""
+        words = tuple((int(k[0]) & prg.M32, int(k[1]) & prg.M32)
+                      for k in keys)
+        if not words:
+            raise ValueError("a CRS batch needs at least one key")
+        return cls(words=words, params=params,
+                   keys=torch.tensor(words, dtype=torch.int64,
+                                     device=device))
+
+    def __len__(self) -> int:
+        return len(self.words)
+
+    def __getitem__(self, b):
+        """Instance b's ``CRS``; a slice gives a sub-batch."""
+        if isinstance(b, slice):
+            return CRSBatch(words=self.words[b], keys=self.keys[b],
+                            params=self.params)
+        return CRS(key=self.words[b], params=self.params)
+
+    def draw(self, offsets: torch.Tensor) -> torch.Tensor:
+        """Every instance's CRS entries at int64 ``offsets`` (any shape):
+        (B,) + offsets.shape."""
+        lead = (len(self),) + (1,) * offsets.dim()
+        k0, k1 = (torch.tensor([w[i] for w in self.words], dtype=torch.int64,
+                               device=offsets.device).reshape(lead)
+                  for i in (0, 1))
+        return prg.uniform_mod_q(k0, k1, offsets, self.params.q)
 
 
 def _used_intervals(p: LabradorParams) -> list[tuple[int, int]]:

@@ -13,6 +13,13 @@
 // Table mode (ajtai_commit_table_launch, small q only): the entries of A
 // read from a crs.MaterializedCRS's table at the same offsets (TableSrc,
 // threefry.cuh) instead of generated; the rest is the same.
+// Batch mode: `instances` independent instances in one launch (the JAX
+// package's vmap of the commitment over (B, 2) CRS keys), each with its
+// own CRS key (ThreefrySrc::at) and witness (the instance's operand at
+// instance * inst_stride); the instance is the slow part of grid.z, so a
+// block generates the entries of one instance's A for that instance's
+// vectors only.  Composes with the range mode: every instance takes the
+// same rows.  A single CRS is a batch of one.
 //
 // One GEMM per block, with many right-hand sides:
 //     t^T (64 r_eff x kappa) = S (64 r_eff x 64 n) . A^T (64 n x kappa),
@@ -75,7 +82,8 @@
 // generation on the CUDA cores; global traffic is the witness and t.
 // Shape limits (checked by the wrapper, labrador_tpu_torch/ops/ajtai_cuda.py):
 // d = 64, q <= 32513 or 2^32 < q < 2^33 (a witness of residues or signed
-// values in [-q/2, q)), r_eff * kappa * 64 and n * 64 below 2^31.
+// values in [-q/2, q)), instances * r_eff and n * 64 below 2^31, instances x
+// rhs groups at most 65535 (grid.z); part and out indexed in 64 bits.
 #include "mma_stream.cuh"
 
 namespace {
@@ -191,17 +199,20 @@ struct AjtaiSmem {
   }
 };
 
-// part[s][j][row][k] = (sum over split s of A[row0 + row][l] (*)
-// s[j][l])[k] mod q, row < rows.  s: (nrhs, L, D) residues in [0, q) or signed values of magnitude
-// at most q/2 (centred alike); grid (splits, row blocks, rhs groups); a
-// block of R_T * G * (4 / MT) * LG warps.
-// src(offset) is the CRS entry there (ThreefrySrc or TableSrc).
+// part[s][b][j][row][k] = (sum over split s of A_b[row0 + row][l] (*)
+// s_b[j][l])[k] mod q, row < rows, for instance b < instances.  s_b: the
+// (nrhs, L, D) operand at dig + b * inst_stride, residues in [0, q) or
+// signed values of magnitude at most q/2 (centred alike); grid (splits,
+// row blocks, instances x rhs groups); a block of R_T * G * (4 / MT) * LG
+// warps.  src_all.at(b)(offset) is instance b's CRS entry there
+// (ThreefrySrc or TableSrc).
 template <bool BIG, class Src>
 __global__ void __launch_bounds__(AjtaiMode<BIG>::WARPS * 32,
                                   AjtaiMode<BIG>::MIN_BLOCKS)
 ajtai_mma_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
                  int nrhs, int L, int rows, int row0, int64_t q,
-                 uint64_t barrett_m, Src src, int R_T, int G, int LG,
+                 uint64_t barrett_m, Src src_all, int instances,
+                 int64_t inst_stride, int R_T, int G, int LG,
                  int l_per_split) {
   using M = AjtaiMode<BIG>;
   constexpr int EL = M::EL, DL = M::DL, MT = M::MT, LC = M::LC;
@@ -216,7 +227,15 @@ ajtai_mma_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
   const int rt = (warp / MS) % R_T;
   const int gj = (warp / (MS * R_T)) % G;
   const int lg = warp / (MS * R_T * G);
-  const int j = blockIdx.z * G + gj;     // this warp's witness vector
+  const int n_groups = (nrhs + G - 1) / G;
+  const int inst = blockIdx.z / n_groups;            // this block's instance
+  const int grp = blockIdx.z - inst * n_groups;      // its rhs group
+  const Src src = src_all.at(inst);
+  dig += inst * inst_stride;
+  // part rows of this instance's vectors: instance-major over all vectors
+  const int64_t vec0 = static_cast<int64_t>(inst) * nrhs;
+  const int64_t nvec = static_cast<int64_t>(instances) * nrhs;
+  const int j = grp * G + gj;            // this warp's witness vector
   const bool j_ok = j < nrhs;
   const int row_base = blockIdx.y * R_T * 8;
   const int s = blockIdx.x;
@@ -245,7 +264,7 @@ ajtai_mma_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
 #pragma unroll 4
     for (int e = threadIdx.x; e < G * LC * D; e += nthreads) {
       const int gg = e / (LC * D), l = (e / D) % LC, c = e % D;
-      const int jj = blockIdx.z * G + gg;
+      const int jj = grp * G + gg;
       typename M::Dig v = 0;
       if (l < nl && jj < nrhs) {
         const int64_t x = dig[(static_cast<int64_t>(jj) * L + l0 + l) * D + c];
@@ -370,7 +389,7 @@ ajtai_mma_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
         int64_t v = res[mi][c];
         if (v < 0) v += q;
         if (n < rows) {
-          part[((static_cast<int64_t>(s) * nrhs + j) * rows + n) * D + k] = v;
+          part[((s * nvec + vec0 + j) * rows + n) * D + k] = v;
         }
       }
     }
@@ -399,9 +418,9 @@ ajtai_mma_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
   __syncthreads();
   for (int e = threadIdx.x; e < block_rows * G * D; e += nthreads) {
     const int n = row_base + e / (G * D);
-    const int jj = blockIdx.z * G + (e / D) % G;
+    const int jj = grp * G + (e / D) % G;
     if (n < rows && jj < nrhs) {
-      part[((static_cast<int64_t>(s) * nrhs + jj) * rows + n) * D + e % D] =
+      part[((s * nvec + vec0 + jj) * rows + n) * D + e % D] =
           static_cast<int64_t>(sh.red[e] % uq);
     }
   }
@@ -410,12 +429,15 @@ ajtai_mma_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
 template <bool BIG, class Src>
 cudaError_t launch_ajtai(const int64_t* dig, int64_t* part, int nrhs, int L,
                          int rows, int row0, int64_t q, uint64_t barrett_m,
-                         Src src, int R_T, int G, int LG, int splits,
+                         Src src, int instances, int64_t inst_stride,
+                         int R_T, int G, int LG, int splits,
                          int l_per_split, cudaStream_t st) {
   using M = AjtaiMode<BIG>;
   const int warps = R_T * G * (4 / M::MT) * LG;
+  const int64_t z_blocks = static_cast<int64_t>(instances) *
+                           ((nrhs + G - 1) / G);
   if (R_T < 1 || G < 1 || LG < 1 || warps > M::WARPS || splits < 1 ||
-      l_per_split % M::LC != 0) {
+      l_per_split % M::LC != 0 || instances < 1 || z_blocks > 65535) {
     return cudaErrorInvalidValue;
   }
   const size_t smem = AjtaiSmem<BIG>::bytes(G, R_T, LG);
@@ -429,20 +451,20 @@ cudaError_t launch_ajtai(const int64_t* dig, int64_t* part, int nrhs, int L,
     smem_set = smem;
   }
   const dim3 grid(splits, (rows + 8 * R_T - 1) / (8 * R_T),
-                  (nrhs + G - 1) / G);
+                  static_cast<unsigned>(z_blocks));
   ajtai_mma_kernel<BIG, Src><<<grid, 32 * warps, smem, st>>>(
-      dig, part, nrhs, L, rows, row0, q, barrett_m, src, R_T, G, LG,
-      l_per_split);
+      dig, part, nrhs, L, rows, row0, q, barrett_m, src, instances,
+      inst_stride, R_T, G, LG, l_per_split);
   return cudaGetLastError();
 }
 
-// The split reduction into out (r_eff, kappa, D) after the kernel's
-// launch, or the launch's error.
+// The split reduction into out (instances, r_eff, kappa, D) after the
+// kernel's launch, or the launch's error.
 cudaError_t reduce_ajtai(cudaError_t err, const int64_t* part, int64_t* out,
-                         int r_eff, int kappa, int splits, int64_t q,
+                         int64_t vectors, int kappa, int splits, int64_t q,
                          cudaStream_t st) {
   if (err != cudaSuccess) return err;
-  const int64_t total = static_cast<int64_t>(r_eff) * kappa * D;
+  const int64_t total = vectors * kappa * D;
   reduce_splits_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0,
                          st>>>(part, out, splits, total, q);
   return cudaGetLastError();
@@ -450,29 +472,34 @@ cudaError_t reduce_ajtai(cudaError_t err, const int64_t* part, int64_t* out,
 
 }  // namespace
 
-// The kernel in the mode of q, then the split reduction into out (r_eff,
-// kappa, D): the rows row0 .. row0 + kappa - 1 of A (kappa the rows of
-// this call, all of A's at row0 = 0).  Returns the first launch error, or
-// cudaErrorInvalidValue for a launch shape the kernel does not take (the
-// wrapper's launch_shape gives one it takes).
+// The kernel in the mode of q, then the split reduction into out
+// (instances, r_eff, kappa, D): the rows row0 .. row0 + kappa - 1 of A
+// (kappa the rows of this call, all of A's at row0 = 0) for each of the
+// `instances` instances, instance b with the CRS key keys[b] ((instances,
+// 2) uint32 words in int64, on the device) and the witness at s + b *
+// inst_stride.  Returns the first launch error, or cudaErrorInvalidValue
+// for a launch shape the kernel does not take (the wrapper's launch_shape
+// gives one it takes).
 extern "C" int ajtai_commit_launch(const int64_t* s, int64_t* part,
                                    int64_t* out, int r_eff, int n, int kappa,
                                    int row0, int64_t q, uint64_t barrett_m,
-                                   uint32_t k0, uint32_t k1, int row_tiles,
+                                   const int64_t* keys, int instances,
+                                   int64_t inst_stride, int row_tiles,
                                    int rhs_group, int l_groups, int splits,
                                    int l_per_split, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const ThreefrySrc src{k0, k1, static_cast<uint64_t>(q), barrett_m};
+  const ThreefrySrc src{keys, static_cast<uint64_t>(q), barrett_m};
   const cudaError_t err =
       q <= SMALL_Q_MAX
           ? launch_ajtai<false>(s, part, r_eff, n, kappa, row0, q, barrett_m,
-                                src, row_tiles, rhs_group, l_groups, splits,
-                                l_per_split, st)
+                                src, instances, inst_stride, row_tiles,
+                                rhs_group, l_groups, splits, l_per_split, st)
           : launch_ajtai<true>(s, part, r_eff, n, kappa, row0, q, barrett_m,
-                               src, row_tiles, rhs_group, l_groups, splits,
-                               l_per_split, st);
-  return static_cast<int>(reduce_ajtai(err, part, out, r_eff, kappa, splits,
-                                       q, st));
+                               src, instances, inst_stride, row_tiles,
+                               rhs_group, l_groups, splits, l_per_split, st);
+  return static_cast<int>(reduce_ajtai(
+      err, part, out, static_cast<int64_t>(instances) * r_eff, kappa, splits,
+      q, st));
 }
 
 // The table mode: A's entries read from the table coeffs[0 .. total) of a
@@ -489,7 +516,7 @@ extern "C" int ajtai_commit_table_launch(const int64_t* s, int64_t* part,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   // barrett_m 0: only the big-q flush reads it
   const cudaError_t err = launch_ajtai<false>(
-      s, part, r_eff, n, kappa, row0, q, 0, TableSrc{coeffs, total},
+      s, part, r_eff, n, kappa, row0, q, 0, TableSrc{coeffs, total}, 1, 0,
       row_tiles, rhs_group, l_groups, splits, l_per_split, st);
   return static_cast<int>(reduce_ajtai(err, part, out, r_eff, kappa, splits,
                                        q, st));

@@ -23,8 +23,10 @@
 // _cd_sharded_partial cuts it), lin = l0 + l for the l-th local digit;
 // the result is this shard's partial.  l0 = 0 over the whole stream is
 // the whole sum.
+// Batch mode: independent instances in one launch, each with its own CRS
+// key and digits (mma_stream.cuh); every instance takes the same range.
 // Shape limits (checked by ops/cd_cuda.py): d = 64, q <= 32513 or
-// 2^32 < q < 2^33, L and kappa_2 * d below 2^31.
+// 2^32 < q < 2^33, L and kappa_2 * d below 2^31, at most 65535 instances.
 #include "mma_stream.cuh"
 
 namespace {
@@ -48,18 +50,23 @@ struct CdOffset {
 
 }  // namespace
 
+// Batch mode: `instances` instances, instance b with the CRS key keys[b]
+// ((instances, 2) uint32 words in int64, on the device) and its local
+// digits at dig + b * inst_stride; out (instances, kappa2, D), bad[b] per
+// instance.  A single instance is a batch of one.
 extern "C" int cd_sum_launch(const int64_t* dig, int64_t* part, int64_t* out,
                              int* bad, int L, int l0, int t_used, int t1,
-                             int kappa2, int64_t q,
-                             uint64_t barrett_m, uint64_t base, uint32_t k0,
-                             uint32_t k1, int digit_limbs, int tiles,
-                             int groups, int splits, int l_per_split,
-                             void* stream) {
+                             int kappa2, int64_t q, uint64_t barrett_m,
+                             uint64_t base, const int64_t* keys,
+                             int instances, int64_t inst_stride,
+                             int digit_limbs, int tiles, int groups,
+                             int splits, int l_per_split, void* stream) {
   const CdOffset off{base, t_used, t1, kappa2, l0};
-  const ThreefrySrc src{k0, k1, static_cast<uint64_t>(q), barrett_m};
+  const ThreefrySrc src{keys, static_cast<uint64_t>(q), barrett_m};
   return static_cast<int>(launch_mma_stream(
-      dig, part, out, bad, L, kappa2, q, src, off, digit_limbs, tiles,
-      groups, splits, l_per_split, static_cast<cudaStream_t>(stream)));
+      dig, part, out, bad, L, kappa2, q, src, instances, inst_stride, off,
+      digit_limbs, tiles, groups, splits, l_per_split,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // The table mode: C/D entries read from the table coeffs[0 .. total) of a
@@ -73,7 +80,7 @@ extern "C" int cd_sum_table_launch(const int64_t* dig, int64_t* part,
                                    void* stream) {
   const CdOffset off{base, t_used, t1, kappa2, l0};
   return static_cast<int>(launch_mma_stream(
-      dig, part, out, bad, L, kappa2, q, TableSrc{coeffs, total}, off,
+      dig, part, out, bad, L, kappa2, q, TableSrc{coeffs, total}, 1, 0, off,
       digit_limbs, tiles, groups, splits, l_per_split,
       static_cast<cudaStream_t>(stream)));
 }

@@ -37,8 +37,9 @@
 // each padded to 40 words so that the 4 copies a warp reads fall in
 // distinct banks.
 //
-// Launch shape (ops/u1_cuda.py launch_shape): grid (splits, row blocks); a
-// block holds `tiles` 8-row tiles times `groups` warps each.  With few
+// Launch shape (ops/u1_cuda.py launch_shape): grid (splits, row blocks,
+// instances); a block holds `tiles` 8-row tiles times `groups` warps
+// each.  With few
 // rows (kappa' = 16 after a fold: 2 tiles), or a stream too short to fill
 // the card with splits (the 2^14 C-term: 136 ring elements), the block's
 // warps split the ring elements of each chunk among `groups` l-groups, so
@@ -75,6 +76,18 @@
 // plus the Barrett reduction and the limb split, on the CUDA cores; the
 // tensor-core products are a few percent of that, global traffic only the
 // digit stream.
+//
+// Batch mode: `instances` independent instances in one launch (the JAX
+// package's vmap of the commitment over (B, 2) CRS keys), grid.z the
+// instance: a block binds its source to its instance's CRS key
+// (ThreefrySrc::at) and reads that instance's digit stream at dig +
+// instance * inst_stride; the offsets (off) are the same for every
+// instance.  Partials, results and the digit flag are per instance (part
+// (splits, instances, rows, D), out (instances, rows, D), bad
+// (instances)), so the wrappers read every instance's flag with one
+// device sync and name the instance.  A single instance is a batch of
+// one.  Each instance has its own CRS, so a batch shares no Threefry
+// work: its time is about the instances' sum, less the launches.
 //
 // Table mode (Src = TableSrc, small q only): each entry is read from the
 // flat table of a crs.MaterializedCRS at the same offset instead of
@@ -182,15 +195,18 @@ union MmaShared {
   unsigned long long red[MMA_MAX_GROUP_TILES * 8][D];
 };
 
-// part[s][row][k] = (sum over split s of M(l, row) (*) dig[l])[k] mod q.
-// EL entry limbs (2: small q, 5: big q), DL digit limbs; off.stream(l) +
-// off.row(row) the CRS offset of coefficient 0 of M(l, row), src(offset)
-// the entry there (threefry.cuh: ThreefrySrc or TableSrc).
+// part[s][b][row][k] = (sum over split s of M_b(l, row) (*) dig_b[l])[k]
+// mod q for instance b = blockIdx.z, dig_b the stream at dig + b *
+// inst_stride.  EL entry limbs (2: small q, 5: big q), DL digit limbs;
+// off.stream(l) + off.row(row) the CRS offset of coefficient 0 of M(l,
+// row), src_all.at(b)(offset) instance b's entry there (threefry.cuh:
+// ThreefrySrc or TableSrc).
 template <int EL, int DL, class Off, class Src>
 __global__ void __launch_bounds__(MMA_MAX_WARPS * 32)
 mma_stream_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
-                  int* __restrict__ bad, int L, int rows, int64_t q, Src src,
-                  Off off, int tiles, int l_per_split) {
+                  int* __restrict__ bad, int L, int rows, int64_t q,
+                  Src src_all, int64_t inst_stride, Off off, int tiles,
+                  int l_per_split) {
   constexpr int NW = EL + DL - 1;  // limb weights
   // the largest |digit| that DL signed limbs hold for x and -x alike
   constexpr int64_t cover = 127 * ((int64_t{1} << (8 * DL)) - 1) / 255;
@@ -206,6 +222,11 @@ mma_stream_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
   const bool row_ok = row < rows;
   const uint64_t row_off = off.row(row);
   const int s = blockIdx.x;
+  const int inst = blockIdx.z;
+  const Src src = src_all.at(inst);
+  dig += inst * inst_stride;
+  // this instance's rows of split s's partial
+  part += (static_cast<int64_t>(s) * gridDim.z + inst) * rows * D;
   const int l_begin = s * l_per_split;
   const int l_end = min(L, l_begin + l_per_split);
   const int64_t half_q = q / 2;
@@ -311,7 +332,7 @@ mma_stream_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
     __syncthreads();
   }
   mma_flush<EL, NW>(acc, res, q);
-  if (beyond) atomicOr(bad, 1);
+  if (beyond) atomicOr(bad + inst, 1);
 
   // c[0..3] of m-tile mt: coefficient 16 mt + g (+8 for c >= 2), CRS row
   // row0 + 2 t (+1 for odd c)
@@ -325,7 +346,7 @@ mma_stream_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
         int64_t v = res[mt][c];
         if (v < 0) v += q;
         if (n < rows) {
-          part[(static_cast<int64_t>(s) * rows + n) * D + k] = v;
+          part[static_cast<int64_t>(n) * D + k] = v;
         }
       }
     }
@@ -352,7 +373,7 @@ mma_stream_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
   for (int e = threadIdx.x; e < block_rows * D; e += nthreads) {
     const int n = blockIdx.y * block_rows + e / D;
     if (n < rows) {
-      part[(static_cast<int64_t>(s) * rows + n) * D + e % D] =
+      part[static_cast<int64_t>(n) * D + e % D] =
           static_cast<int64_t>(sh.red[e / D][e % D] % uq);
     }
   }
@@ -360,39 +381,43 @@ mma_stream_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
 
 template <int EL, int DL, class Off, class Src>
 cudaError_t launch_mma(const int64_t* dig, int64_t* part, int* bad, int L,
-                       int rows, int64_t q, Src src, Off off, int tiles,
-                       int groups, int splits, int l_per_split,
-                       cudaStream_t stream) {
-  const dim3 grid(splits, (rows + 8 * tiles - 1) / (8 * tiles));
+                       int rows, int64_t q, Src src, int instances,
+                       int64_t inst_stride, Off off, int tiles, int groups,
+                       int splits, int l_per_split, cudaStream_t stream) {
+  const dim3 grid(splits, (rows + 8 * tiles - 1) / (8 * tiles), instances);
   mma_stream_kernel<EL, DL, Off, Src>
       <<<grid, 32 * tiles * groups, 0, stream>>>(dig, part, bad, L, rows, q,
-                                                 src, off, tiles,
-                                                 l_per_split);
+                                                 src, inst_stride, off,
+                                                 tiles, l_per_split);
   return cudaGetLastError();
 }
 
-// The stream kernel in the mode of q and digit_limbs, then the split
-// reduction into out (rows, D); *bad is zeroed first and set for a digit
+// The stream kernel in the mode of q and digit_limbs over `instances`
+// instances (instance b: key src.at(b), digits at dig + b * inst_stride),
+// then the split reduction into out (instances, rows, D); bad[0 ..
+// instances) is zeroed first and bad[b] set for a digit of instance b
 // beyond the limbs.  Returns the first launch error, or
 // cudaErrorInvalidValue for a mode or a shape the kernel does not take
 // (the wrappers raise before that; a TableSrc at big q is one).
 template <class Off, class Src>
 cudaError_t launch_mma_stream(const int64_t* dig, int64_t* part,
                               int64_t* out, int* bad, int L, int rows,
-                              int64_t q, Src src, Off off, int digit_limbs,
+                              int64_t q, Src src, int instances,
+                              int64_t inst_stride, Off off, int digit_limbs,
                               int tiles, int groups, int splits,
                               int l_per_split, cudaStream_t st) {
   if (tiles < 1 || groups < 1 || tiles * groups > MMA_MAX_WARPS ||
       (groups > 1 && tiles > MMA_MAX_GROUP_TILES) || splits < 1 ||
-      l_per_split % MMA_LC != 0) {
+      l_per_split % MMA_LC != 0 || instances < 1 || instances > 65535) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaMemsetAsync(bad, 0, sizeof(int), st);
+  cudaError_t err = cudaMemsetAsync(bad, 0, sizeof(int) * instances, st);
   if (err != cudaSuccess) return err;
   err = cudaErrorInvalidValue;
 #define LAB_MMA(EL, DL)                                                  \
-  err = launch_mma<EL, DL, Off, Src>(dig, part, bad, L, rows, q, src, off, \
-                                     tiles, groups, splits, l_per_split, st)
+  err = launch_mma<EL, DL, Off, Src>(dig, part, bad, L, rows, q, src,     \
+                                     instances, inst_stride, off, tiles,  \
+                                     groups, splits, l_per_split, st)
   if (q <= SMALL_Q_MAX) {
     if (digit_limbs == 1) LAB_MMA(2, 1);
     else if (digit_limbs == 2) LAB_MMA(2, 2);
@@ -404,7 +429,7 @@ cudaError_t launch_mma_stream(const int64_t* dig, int64_t* part,
   }
 #undef LAB_MMA
   if (err != cudaSuccess) return err;
-  const int64_t n = static_cast<int64_t>(rows) * D;
+  const int64_t n = static_cast<int64_t>(instances) * rows * D;
   reduce_splits_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
                          st>>>(part, out, splits, n, q);
   return cudaGetLastError();

@@ -89,10 +89,25 @@ __device__ __forceinline__ int64_t crs_coeff(uint32_t k0, uint32_t k1,
 // structs.rs:106).  The table holds residues already, so it needs no
 // reduction; it exists at small q only (create_chacha refuses big q), so
 // the kernels take TableSrc in their small-q modes only (BIG_OK).
+//
+// A launch covers one or more independent instances (crs.CRSBatch, the
+// JAX package's vmap over (B, 2) CRS keys), each with its own CRS.  A
+// block works for one instance and binds its source to it first,
+// src.at(instance): ThreefrySrc reads that instance's key from the device
+// array keys (instances, 2) of uint32 words held in int64, so a single
+// CRS is a batch of one; TableSrc ignores the instance (a table is never
+// batched: the wrappers refuse a MaterializedCRS in a batch).
 struct ThreefrySrc {
   static constexpr bool BIG_OK = true;
-  uint32_t k0, k1;
+  const int64_t* keys;
   uint64_t q, barrett_m;
+  uint32_t k0 = 0, k1 = 0;     // the key of the bound instance
+  __device__ __forceinline__ ThreefrySrc at(int instance) const {
+    ThreefrySrc s = *this;
+    s.k0 = static_cast<uint32_t>(__ldg(keys + 2 * instance));
+    s.k1 = static_cast<uint32_t>(__ldg(keys + 2 * instance + 1));
+    return s;
+  }
   __device__ __forceinline__ uint64_t operator()(uint64_t off) const {
     return static_cast<uint64_t>(crs_coeff(k0, k1, off, q, barrett_m));
   }
@@ -102,6 +117,7 @@ struct TableSrc {
   static constexpr bool BIG_OK = false;
   const int32_t* coeffs;
   uint64_t total;
+  __device__ __forceinline__ TableSrc at(int) const { return *this; }
   __device__ __forceinline__ uint64_t operator()(uint64_t off) const {
     return off < total ? static_cast<uint64_t>(__ldg(coeffs + off)) : 0;
   }
@@ -119,8 +135,9 @@ __device__ __forceinline__ int64_t mod_i128(__int128 v, int64_t q,
   return t < 0 ? t + q : t;
 }
 
-// out[i] = sum_s part[s][i] mod q over n outputs (part entries in [0, q)):
-// at most 65535 splits of terms below q < 2^33 sum below 2^49 in int64.
+// out[i] = sum_s part[s][i] mod q over n outputs (part entries in [0, q);
+// n covers every instance of a batch): at most 65535 splits of terms
+// below q < 2^33 sum below 2^49 in int64.
 __global__ void reduce_splits_kernel(const int64_t* __restrict__ part,
                                      int64_t* __restrict__ out, int splits,
                                      int64_t n, int64_t q) {

@@ -8,7 +8,9 @@
 // t_dig (t_1, r, kappa, d) with m = i * t_1 + k).  B_m[row][col][c] sits at
 //     off_b + m * kappa_1 * kappa + row * kappa * d + col * d + c
 // (structs.rs:74-88, the B stride without a factor d kept as in the
-// reference).  Table mode (u1_bterm_table_launch): the entries read from
+// reference).  Batch mode: independent instances in one launch, each with
+// its own CRS key and stream (mma_stream.cuh).  Table mode
+// (u1_bterm_table_launch): the entries read from
 // a crs.MaterializedCRS's table at the same offsets, small q only.  Range
 // mode: the columns col0 .. col0 + ncols - 1 of every B_m only (one shard of the kappa contraction on a (dp, rows) mesh, the
 // JAX package's per-device B column block), a stream over l = m * ncols +
@@ -18,7 +20,7 @@
 // mma_stream.cuh (design, limbs, bounds) with this offset; what bounds it
 // on the H100 is Threefry and the per-entry work on the CUDA cores.
 // Shape limits (checked by ops/u1_cuda.py): d = 64, q <= 32513 or
-// 2^32 < q < 2^33, r * t_1 * kappa below 2^31.
+// 2^32 < q < 2^33, r * t_1 * kappa below 2^31, at most 65535 instances.
 #include "mma_stream.cuh"
 
 namespace {
@@ -44,18 +46,23 @@ struct U1Offset {
 // Returns the first launch error; cudaErrorInvalidValue for a mode the
 // kernel does not take (the wrapper raises before that).  *bad is set for
 // a digit beyond the limbs.
+// Batch mode: `instances` instances, instance b with the CRS key keys[b]
+// ((instances, 2) uint32 words in int64, on the device) and its stream at
+// t_stream + b * inst_stride; out (instances, kappa1, D), bad[b] per
+// instance.  A single instance is a batch of one.
 extern "C" int u1_bterm_launch(const int64_t* t_stream, int64_t* part,
                                int64_t* out, int* bad, int m_total, int ncols,
                                int kappa, int kappa1, int col0, int64_t q,
-                               uint64_t barrett_m,
-                               uint64_t off_b, uint32_t k0, uint32_t k1,
-                               int digit_limbs, int tiles, int groups,
-                               int splits, int l_per_split, void* stream) {
+                               uint64_t barrett_m, uint64_t off_b,
+                               const int64_t* keys, int instances,
+                               int64_t inst_stride, int digit_limbs,
+                               int tiles, int groups, int splits,
+                               int l_per_split, void* stream) {
   const U1Offset off{off_b, ncols, kappa, kappa1, col0};
-  const ThreefrySrc src{k0, k1, static_cast<uint64_t>(q), barrett_m};
+  const ThreefrySrc src{keys, static_cast<uint64_t>(q), barrett_m};
   return static_cast<int>(launch_mma_stream(
-      t_stream, part, out, bad, m_total * ncols, kappa1, q, src, off,
-      digit_limbs, tiles, groups, splits, l_per_split,
+      t_stream, part, out, bad, m_total * ncols, kappa1, q, src, instances,
+      inst_stride, off, digit_limbs, tiles, groups, splits, l_per_split,
       static_cast<cudaStream_t>(stream)));
 }
 
@@ -72,6 +79,6 @@ extern "C" int u1_bterm_table_launch(const int64_t* t_stream, int64_t* part,
   const U1Offset off{off_b, ncols, kappa, kappa1, col0};
   return static_cast<int>(launch_mma_stream(
       t_stream, part, out, bad, m_total * ncols, kappa1, q,
-      TableSrc{coeffs, total}, off, digit_limbs, tiles, groups, splits,
+      TableSrc{coeffs, total}, 1, 0, off, digit_limbs, tiles, groups, splits,
       l_per_split, static_cast<cudaStream_t>(stream)));
 }

@@ -59,25 +59,47 @@ def key(seed: int) -> Key:
     return Key((seed >> 32) & M32, seed & M32)
 
 
-def _block(k: Key, c0: int, c1: int) -> tuple[int, int]:
-    x0, x1 = threefry2x32(k.k0, k.k1, torch.tensor([c0]), torch.tensor([c1]))
-    return int(x0[0]), int(x1[0])
+def _words(ks: list) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry keys' words as (len(ks), 1) int64 tensors (host)."""
+    return tuple(torch.tensor([[getattr(k, f)] for k in ks],
+                              dtype=torch.int64) for f in ("k0", "k1"))
 
 
 def split(k, num: int = 2) -> list:
     """``jax.random.split(k, num)`` as a list of keys."""
     if isinstance(k, ShaKey):
         return [ShaKey(d) for d in sha_prng.split(k.digest, num)]
+    return split_stack([k], num)[0]
+
+
+def split_stack(ks: list, num: int = 2) -> list:
+    """``split(k, num)`` of each key of ``ks``, a list of lists; Threefry
+    keys in one batch (the ``jax.vmap`` of ``split``)."""
+    if not ks or not all(isinstance(k, Key) for k in ks):
+        return [split(k, num) for k in ks]
+    k0, k1 = _words(ks)
     idx = torch.arange(num, dtype=torch.int64)
-    x0, x1 = threefry2x32(k.k0, k.k1, idx >> 32, idx & M32)
-    return [Key(int(a), int(b)) for a, b in zip(x0.tolist(), x1.tolist())]
+    x0, x1 = threefry2x32(k0, k1, idx >> 32, idx & M32)
+    return [[Key(a, b) for a, b in zip(r0, r1)]
+            for r0, r1 in zip(x0.tolist(), x1.tolist())]
 
 
 def fold_in(k, data: int):
     """``jax.random.fold_in(k, data)``."""
     if isinstance(k, ShaKey):
         return ShaKey(sha_prng.fold_in(k.digest, int(data)))
-    return Key(*_block(k, 0, int(data) & M32))
+    return fold_in_stack([k], data)[0]
+
+
+def fold_in_stack(ks: list, data: int) -> list:
+    """``fold_in(k, data)`` of each key of ``ks``; Threefry keys in one
+    batch."""
+    if not ks or not all(isinstance(k, Key) for k in ks):
+        return [fold_in(k, data) for k in ks]
+    k0, k1 = _words(ks)
+    x0, x1 = threefry2x32(k0, k1, torch.zeros(1, dtype=torch.int64),
+                          torch.tensor([int(data) & M32]))
+    return [Key(a, b) for a, b in zip(x0[:, 0].tolist(), x1[:, 0].tolist())]
 
 
 def bits(k, shape, device="cuda") -> torch.Tensor:
@@ -108,7 +130,14 @@ def bernoulli(k, p: float, shape, device="cuda") -> torch.Tensor:
     """``jax.random.bernoulli(k, p, shape)`` at float32: the uniform is the
     top 23 bits over 2**23, exactly representable, compared with
     float32(p)."""
-    u = (bits(k, shape, device) >> 9).to(torch.float64) / float(1 << 23)
+    return bernoulli_stack([k], p, shape, device)[0]
+
+
+def bernoulli_stack(ks: list, p: float, shape,
+                    device="cuda") -> torch.Tensor:
+    """``bernoulli(k, p, shape)`` of each key of ``ks``, stacked."""
+    u = (bits_stack(ks, shape, device) >> 9).to(torch.float64) \
+        / float(1 << 23)
     return u < float(np.float32(p))
 
 
@@ -116,11 +145,18 @@ def permutation(k, x: torch.Tensor) -> torch.Tensor:
     """``jax.random.permutation(k, x)`` for a 1-D tensor: the rounds of
     ``jax._src.random._shuffle`` (each a split and a stable sort by fresh
     32-bit keys)."""
+    return permutation_stack([k], x)[0]
+
+
+def permutation_stack(ks: list, x: torch.Tensor) -> torch.Tensor:
+    """``permutation(k, x)`` of the 1-D tensor x by each key of ``ks``:
+    (len(ks), n), the sort keys of a round drawn in one batch."""
     n = x.shape[0]
     rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(M32)))
+    out = x.expand(len(ks), n)
     for _ in range(rounds):
-        k, sub = split(k)
-        sort_keys = bits(sub, (n,), x.device)
-        order = torch.sort(sort_keys, stable=True).indices
-        x = x[order]
-    return x
+        ks, subs = zip(*split_stack(list(ks)))
+        sort_keys = bits_stack(list(subs), (n,), x.device)
+        order = torch.sort(sort_keys, dim=-1, stable=True).indices
+        out = torch.gather(out, 1, order)
+    return out

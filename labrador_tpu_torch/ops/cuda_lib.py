@@ -22,6 +22,8 @@ from pathlib import Path
 
 import torch
 
+from .zq import is_big
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,12 +38,12 @@ _U64 = ctypes.c_uint64
 # C entry points (csrc/*.cu) and their argument types; each returns the
 # cudaError_t of its launches.
 _SIGNATURES = {
-    "ajtai_commit_launch": (_P, _P, _P, _I, _I, _I, _I, _I64, _U64, _U32,
-                            _U32, _I, _I, _I, _I, _I, _P),
+    "ajtai_commit_launch": (_P, _P, _P, _I, _I, _I, _I, _I64, _U64, _P, _I,
+                            _I64, _I, _I, _I, _I, _I, _P),
     "u1_bterm_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I64, _U64, _U64,
-                        _U32, _U32, _I, _I, _I, _I, _I, _P),
+                        _P, _I, _I64, _I, _I, _I, _I, _I, _P),
     "cd_sum_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I64, _U64, _U64,
-                      _U32, _U32, _I, _I, _I, _I, _I, _P),
+                      _P, _I, _I64, _I, _I, _I, _I, _I, _P),
     "ajtai_commit_table_launch": (_P, _P, _P, _I, _I, _I, _I, _I64, _P, _U64,
                                   _I, _I, _I, _I, _I, _P),
     "u1_bterm_table_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I64, _U64,
@@ -119,6 +121,19 @@ def load() -> _Loaded:
         f.argtypes = list(argtypes)
         f.restype = ctypes.c_char_p if fn == "cuda_error_string" else _I
     return _Loaded(lib, log)
+
+
+def launch_info(mod, q: int, ranged: bool, batched: bool) -> KernelInfo:
+    """The KernelInfo of wrapper module ``mod`` (Ajtai, u1 or C/D) that a
+    Threefry launch counts in: the range mode's with a range (a sharded
+    prove's, batched or not), else the batch mode's for a
+    ``crs.CRSBatch``, else the plain mode's; each at the size of q."""
+    big = is_big(q)
+    if ranged:
+        return mod.KERNEL_RANGE_BIG if big else mod.KERNEL_RANGE
+    if batched:
+        return mod.KERNEL_BATCH_BIG if big else mod.KERNEL_BATCH
+    return mod.KERNEL_BIG if big else mod.KERNEL
 
 
 def check(err: int) -> None:

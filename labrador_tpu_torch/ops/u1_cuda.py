@@ -24,15 +24,22 @@ rows) mesh, and returns that shard's partial; its launches count in
 ``KERNEL_RANGE`` / ``KERNEL_RANGE_BIG``.  For a ``crs.MaterializedCRS``
 the kernel reads the B entries from its table (the table mode, small q
 only, whole and ranged, launches counted in ``KERNEL_TABLE``), with
-the same digit check; ``ring_stream.entry_table`` decides.
+the same digit check; ``ring_stream.entry_table`` decides.  For a
+``crs.CRSBatch`` of B Threefry CRSs the digits lead with B and the batch
+mode sums every instance's B-term in one launch (launches in
+``KERNEL_BATCH`` / ``KERNEL_BATCH_BIG``, or in the range infos with
+``ncols``), with one device sync for every instance's digit flag.
 """
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 from . import cuda_lib
-from .ring_stream import barrett_m, check_q, entry_table, ring_stream_plain
+from .ring_stream import (barrett_m, check_q, device_keys, entry_table,
+                          instances, ring_stream_plain)
 from .zq import is_big, to_signed_small
 
 KERNEL = cuda_lib.KernelInfo(
@@ -55,6 +62,14 @@ KERNEL_TABLE = cuda_lib.KernelInfo(
     name="u1_bterm_table",
     source="labrador_tpu_torch/csrc/u1.cu",
     replaces="labrador_tpu/ops/u1_pallas.py:164")
+KERNEL_BATCH = cuda_lib.KernelInfo(
+    name="u1_bterm_batch",
+    source="labrador_tpu_torch/csrc/u1.cu",
+    replaces="labrador_tpu/ops/u1_pallas.py:164")
+KERNEL_BATCH_BIG = cuda_lib.KernelInfo(
+    name="u1_bterm_batch_bigq",
+    source="labrador_tpu_torch/csrc/u1.cu",
+    replaces="labrador_tpu/ops/u1_pallas.py:104")
 
 
 def _col_range(p, col0: int, ncols: int | None) -> int:
@@ -70,13 +85,25 @@ def _col_range(p, col0: int, ncols: int | None) -> int:
 
 def _stream(t_dig: torch.Tensor, p, col0: int = 0,
             ncols: int | None = None) -> torch.Tensor:
-    """(t_1, r, kappa, d) digits -> (1, r * t_1 * ncols, d) stream in B
-    order (m = i * t_1 + k, then col) over the columns col0 .. col0 +
-    ncols - 1 (all kappa without a range)."""
+    """(..., t_1, r, kappa, d) digits -> (..., 1, r * t_1 * ncols, d)
+    stream in B order (m = i * t_1 + k, then col) over the columns col0
+    .. col0 + ncols - 1 (all kappa without a range); a leading instance
+    axis stays."""
     ncols = p.kappa if ncols is None else ncols
-    block = t_dig[:, :, col0:col0 + ncols]
-    return torch.swapaxes(block, 0, 1).reshape(1, p.r * p.t_1 * ncols,
-                                                p.d).contiguous()
+    block = t_dig[..., col0:col0 + ncols, :]
+    return torch.swapaxes(block, -4, -3).reshape(
+        t_dig.shape[:-4] + (1, p.r * p.t_1 * ncols, p.d)).contiguous()
+
+
+def _check_instances(crs, t_dig: torch.Tensor, p) -> None:
+    """A batch's digits lead with its instances; a single CRS's have no
+    instance axis."""
+    B = instances(crs)
+    shape = (p.t_1, p.r, p.kappa, p.d)
+    want = shape if B is None else (B,) + shape
+    if tuple(t_dig.shape) != want:
+        raise ValueError(f"t_dig of shape {tuple(t_dig.shape)}, expected "
+                         f"{want}")
 
 
 def u1_bterm(crs, t_dig: torch.Tensor, col0: int = 0,
@@ -84,7 +111,8 @@ def u1_bterm(crs, t_dig: torch.Tensor, col0: int = 0,
     """(kappa_1, d) mod q for t_dig (t_1, r, kappa, d) digits: residues
     mod q, or signed (the big-q convention).  With ``ncols`` (the range
     mode): the partial over the columns col0 .. col0 + ncols - 1 of every
-    B_m and of t_dig."""
+    B_m and of t_dig.  For a ``crs.CRSBatch`` of B CRSs: t_dig (B, t_1,
+    r, kappa, d) -> (B, kappa_1, d), instance b summed with ``crs[b]``."""
     if t_dig.is_cuda:
         return _launch(crs, t_dig, col0, ncols)
     if t_dig.device.type == "cpu":
@@ -97,6 +125,7 @@ def u1_bterm_plain(crs, t_dig: torch.Tensor, col0: int = 0,
     p = crs.params
     kd = p.kappa * p.d
     ncols = _col_range(p, col0, ncols)
+    _check_instances(crs, t_dig, p)
 
     def draw(l0: int, l1: int) -> torch.Tensor:
         # l = m * ncols + lc: offsets off_b + m*k1*k + row*k*d
@@ -111,7 +140,7 @@ def u1_bterm_plain(crs, t_dig: torch.Tensor, col0: int = 0,
         return crs.draw(offs)
 
     return ring_stream_plain(draw, _stream(t_dig, p, col0, ncols),
-                             p.kappa_1, p.q)[0]
+                             p.kappa_1, p.q)[..., 0, :, :]
 
 
 # The stream kernel's limb scheme and launch constants
@@ -157,10 +186,12 @@ def check_limb_mode(q: int, n_limbs: int) -> None:
                          f"q = {q}")
 
 
-def check_digit_range(t_dig: torch.Tensor, q: int, n_limbs: int) -> None:
+def check_digit_range(t_dig: torch.Tensor, q: int, n_limbs: int,
+                      where: str = "") -> None:
     """Raise if a digit, centred as the kernel and the plain version centre
     it (x > q/2 -> x - q), is beyond ``n_limbs`` signed limbs, or if the
-    kernel has no mode with that many.  One device sync on the card."""
+    kernel has no mode with that many.  One device sync on the card.
+    ``where`` (an instance of a batch) ends the message."""
     check_limb_mode(q, n_limbs)
     if not t_dig.numel():
         return
@@ -168,25 +199,34 @@ def check_digit_range(t_dig: torch.Tensor, q: int, n_limbs: int) -> None:
     if top > limb_cover(n_limbs):
         raise ValueError(f"t_dig holds a digit of magnitude {top} beyond "
                          f"the {n_limbs} limbs of the u1 kernel "
-                         f"(|digit| <= {limb_cover(n_limbs)})")
+                         f"(|digit| <= {limb_cover(n_limbs)}){where}")
 
 
 def raise_if_flagged(bad: torch.Tensor, digits: torch.Tensor, q: int,
-                     n_limbs: int) -> None:
+                     n_limbs: int, batched: bool = False) -> None:
     """After a launch: raise if the kernel flagged a digit beyond its limbs
     (``bad`` nonzero; reading it is the one device sync), with
-    ``check_digit_range``'s message."""
-    if int(bad.item()):
-        check_digit_range(digits, q, n_limbs)
-        raise ValueError(f"the stream kernel flagged a digit beyond its "
-                         f"{n_limbs} limbs")
+    ``check_digit_range``'s message.  ``batched``: ``bad`` holds one flag
+    an instance and ``digits`` leads with the instances; the message names
+    the first flagged instance."""
+    flags = bad.tolist()
+    if not any(flags):
+        return
+    b = next(i for i, f in enumerate(flags) if f)
+    where = f" in instance {b}" if batched else ""
+    check_digit_range(digits[b] if batched else digits, q, n_limbs, where)
+    raise ValueError(f"the stream kernel flagged a digit beyond its "
+                     f"{n_limbs} limbs{where}")
 
 
-def launch_shape(rows: int, L: int) -> tuple[int, int, int, int]:
+def launch_shape(rows: int, L: int,
+                 instances: int = 1) -> tuple[int, int, int, int]:
     """(tiles, groups, splits, ring elements per split) of a stream-kernel
     launch: blocks of up to 8 warps, ``tiles`` 8-row tiles times ``groups``
-    warps that split each chunk's ring elements, the l stream split over
-    grid.x until the grid holds about _TARGET_WARPS warps.  The most tiles
+    warps that split each chunk's ring elements, a batch's ``instances``
+    over grid.z first, then the l stream split over grid.x until the grid
+    holds at most _TARGET_WARPS warps (a grid one block-row beyond the
+    card's resident blocks runs a second wave).  The most tiles
     per block that still come near that target (a block's digit loads and
     circulant serve all its rows): kappa = 256 with a long stream, 8 tiles
     x 64 splits; kappa' = 16, 2 tiles x 4 groups, about 260 splits of
@@ -195,8 +235,9 @@ def launch_shape(rows: int, L: int) -> tuple[int, int, int, int]:
     tiles = min(_MAX_WARPS, -(-rows // 8))
     while True:
         groups = _MAX_WARPS // tiles if tiles <= _MAX_GROUP_TILES else 1
-        row_blocks = -(-rows // (8 * tiles))
-        want = -(-_TARGET_WARPS // (row_blocks * tiles * groups))
+        row_blocks = -(-rows // (8 * tiles)) * instances
+        # at most the target: one block-row beyond it is a second wave
+        want = max(1, _TARGET_WARPS // (row_blocks * tiles * groups))
         per = -(-L // max(1, min(want, -(-L // _LC))))
         l_per_split = -(-per // _LC) * _LC
         splits = -(-L // l_per_split)
@@ -215,20 +256,24 @@ def _launch(crs, t_dig: torch.Tensor, col0: int,
     table = entry_table(crs, t_dig.device)
     ranged = ncols is not None
     ncols = _col_range(p, col0, ncols)
-    cuda_lib.require_cuda_operand(t_dig, "t_dig", (p.t_1, p.r, p.kappa, p.d))
+    _check_instances(crs, t_dig, p)
+    cuda_lib.require_cuda_operand(t_dig, "t_dig", t_dig.shape)
+    batch = instances(crs)
+    B = batch or 1
     n_limbs = digit_limbs(p.b_1)
     check_limb_mode(p.q, n_limbs)
     m_total = p.r * p.t_1
     L = m_total * ncols
-    if m_total * p.kappa >= 1 << 31 or p.kappa_1 * p.d >= 1 << 31:
+    if m_total * p.kappa >= 1 << 31 or p.kappa_1 * p.d >= 1 << 31 \
+            or B > 65535:
         raise ValueError("u1 shape beyond the kernel's int32 indexing")
     stream = _stream(t_dig, p, col0, ncols)
-    tiles, groups, splits, l_per_split = launch_shape(p.kappa_1, L)
-    part = torch.empty((splits, 1, p.kappa_1, p.d), dtype=torch.int64,
+    tiles, groups, splits, l_per_split = launch_shape(p.kappa_1, L, B)
+    part = torch.empty((splits, B, p.kappa_1, p.d), dtype=torch.int64,
                        device=t_dig.device)
-    out = torch.empty((p.kappa_1, p.d), dtype=torch.int64,
-                      device=t_dig.device)
-    bad = torch.empty((1,), dtype=torch.int32, device=t_dig.device)
+    out = torch.empty(t_dig.shape[:-4] + (p.kappa_1, p.d),
+                      dtype=torch.int64, device=t_dig.device)
+    bad = torch.empty((B,), dtype=torch.int32, device=t_dig.device)
     lib = cuda_lib.load().lib
     cuda_stream = cuda_lib.stream_ptr(t_dig.device)
     if table is not None:
@@ -242,13 +287,12 @@ def _launch(crs, t_dig: torch.Tensor, col0: int,
         err = lib.u1_bterm_launch(
             stream.data_ptr(), part.data_ptr(), out.data_ptr(),
             bad.data_ptr(), m_total, ncols, p.kappa, p.kappa_1, col0, p.q,
-            barrett_m(p.q), crs._off_b, crs.key[0], crs.key[1], n_limbs,
+            barrett_m(p.q), crs._off_b,
+            device_keys(crs, t_dig.device).data_ptr(), B, L * p.d, n_limbs,
             tiles, groups, splits, l_per_split, cuda_stream)
-        if ranged:
-            info = KERNEL_RANGE_BIG if is_big(p.q) else KERNEL_RANGE
-        else:
-            info = KERNEL_BIG if is_big(p.q) else KERNEL
+        info = cuda_lib.launch_info(sys.modules[__name__], p.q, ranged,
+                                    batch is not None)
     cuda_lib.check(err)
     info.launches += 1
-    raise_if_flagged(bad, stream, p.q, n_limbs)
+    raise_if_flagged(bad, stream, p.q, n_limbs, batch is not None)
     return out

@@ -11,6 +11,10 @@ state through ``absorb`` / ``challenge_key``:
   challenge key is the full 256-bit digest of the state, tag and index,
   a ``keys.ShaKey``.
 
+A batch of independent instances (``prover.prove_batch``) takes one
+oracle an instance (``batch_oracles``): its own verifier key, or its own
+Fiat-Shamir state.
+
 Messages are absorbed as the JAX package absorbs ``jax.tree.leaves`` of
 them: at big q a residue tensor is its two ``Zq2`` limbs, ``x >> 16``
 then ``x & 0xFFFF``; int8 tensors (the JL matrices) are one leaf.
@@ -23,9 +27,12 @@ from dataclasses import dataclass
 
 import torch
 
+from .crs import CRSBatch
 from .keys import Key, ShaKey, fold_in
 from .ops.sha256 import hash_arrays
 from .ops.zq import is_big
+from .params import LabradorParams
+from .structs import State, take
 
 # absorption domains (message order), as in the JAX package
 DOM_INIT = 1
@@ -89,3 +96,32 @@ class FiatShamirOracle:
     def challenge_key(self, st: bytes, tag: int, idx: int = 0) -> ShaKey:
         return ShaKey(hash_arrays(st, torch.tensor([tag, idx]),
                                   domain=_DOM_KEY))
+
+
+def batch_size(crs_b) -> int:
+    """B of a ``crs.CRSBatch`` of B Threefry CRSs; refuses anything else."""
+    if not isinstance(crs_b, CRSBatch):
+        raise TypeError(
+            f"batched proving takes a crs.CRSBatch of Threefry CRSs, not "
+            f"{type(crs_b).__name__}: a MaterializedCRS is one table a "
+            f"process and is never batched (nor vmapped in the JAX "
+            f"package)")
+    return len(crs_b)
+
+
+def batch_oracles(params: LabradorParams, state_b: State, crs_b: CRSBatch,
+                  verifier_keys=None, oracle: str = "interactive") -> list:
+    """One oracle an instance: "interactive" (challenges from each
+    instance's verifier key) or "fs" (a ``FiatShamirOracle`` an instance,
+    its SHA-256 state bound to the instance's CRS key and statement; the
+    verifier keys are ignored)."""
+    B = batch_size(crs_b)
+    if oracle == "fs":
+        return [FiatShamirOracle.create(crs_b.words[b], take(state_b, b),
+                                        params) for b in range(B)]
+    if oracle == "interactive":
+        if verifier_keys is None or len(verifier_keys) != B:
+            raise ValueError("interactive batched proving needs one "
+                             "verifier key an instance")
+        return [InteractiveOracle(vkey=k) for k in verifier_keys]
+    raise ValueError(f"unknown oracle {oracle!r}")

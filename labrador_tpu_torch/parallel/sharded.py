@@ -4,17 +4,19 @@ Counterpart of ``labrador_tpu/parallel/sharded.py``:
 
   * ``dp``   splits a batch of independent proof instances: dp rank d
              proves the contiguous block d * B / n_dp .. (d + 1) * B / n_dp
-             (the JAX package's ``P("dp")``), one instance after another
-             (its ``vmap``, as a loop), and the blocks' transcripts are
-             gathered over dp in rank order, so every rank returns the
-             whole batch.
+             (the JAX package's ``P("dp")``) as one batch
+             (``prover.prove_batch_impl``, its ``vmap``: each kernel
+             launched once for the block), and the blocks' transcripts
+             are gathered over dp in rank order, so every rank returns
+             the whole batch.
   * ``rows`` splits the kappa-sized work of the three commitments: each
              rank runs the range mode of the Ajtai, u1 and C/D kernels
              over its share (``protocol.AxisCtx``) and one all-gather or
              all-reduce over its rows group completes the result.
 
 There is one protocol implementation: these factories call
-``prover.prove_impl`` and ``verifier.verify_report`` with an AxisCtx.
+``prover.prove_batch_impl`` and ``verifier.verify_report`` with an
+AxisCtx.
 Everything not kappa-sized runs replicated on every rank of a rows group;
 identical inputs and explicit keys make the replicas bit-identical, so
 the transcripts equal the single-device prover's byte for byte, at both
@@ -29,12 +31,15 @@ import dataclasses
 
 import torch
 
-from ..crs import CRS
-from ..oracle import FiatShamirOracle, InteractiveOracle
+from ..crs import CRS, CRSBatch
+from ..oracle import batch_oracles
 from ..params import LabradorParams
 from ..protocol import AxisCtx
-from ..prover import prove_impl
-from ..structs import State, Transcript
+from ..prover import prove_batch_impl
+# stack and take batch and unbatch the instances ``make_sharded_prover``
+# takes and returns; they live in structs beside the prover, which uses
+# them too
+from ..structs import State, Transcript, stack, take  # noqa: F401
 from ..verifier import verify_report
 from .collectives import all_gather_cat
 from .mesh import Mesh
@@ -49,25 +54,6 @@ def _row_ctx(params: LabradorParams, mesh: Mesh) -> AxisCtx:
     if not mesh.member:
         raise ValueError("this rank is beyond the mesh")
     return AxisCtx(mesh.rows_group, mesh.n_rows, mesh.row, mesh.stats)
-
-
-def stack(objs: list):
-    """A batch of instances' States (or Transcripts): each field stacked
-    along a new leading axis, the batch ``make_sharded_prover`` takes."""
-    return type(objs[0])(**{f.name: torch.stack([getattr(o, f.name)
-                                                 for o in objs])
-                            for f in dataclasses.fields(objs[0])})
-
-
-def take(batch, b: int | None, device=None):
-    """Instance b of a batch of States or Transcripts (all of it when
-    None), on ``device`` (where it lies when None)."""
-    def one(x: torch.Tensor) -> torch.Tensor:
-        x = x if b is None else x[b]
-        return x if device is None else x.to(device)
-
-    return type(batch)(**{f.name: one(getattr(batch, f.name))
-                          for f in dataclasses.fields(batch)})
 
 
 def _crs(params: LabradorParams, key) -> CRS:
@@ -95,16 +81,14 @@ def make_sharded_prover(params: LabradorParams, mesh: Mesh,
             raise ValueError(f"batch {B} is not a multiple of dp="
                              f"{mesh.n_dp}")
         per = B // mesh.n_dp
-        proofs = []
-        for b in range(mesh.dp * per, (mesh.dp + 1) * per):
-            crs = _crs(params, crs_keys[b])
-            state = take(state_b, b, mesh.device)
-            orc = (FiatShamirOracle.create(crs.key, state, params)
-                   if oracle == "fs"
-                   else InteractiveOracle(vkey=verifier_keys[b]))
-            proofs.append(prove_impl(params, witness_b[b].to(mesh.device),
-                                     state, crs, orc, decomp_mode, ctx))
-        local = stack(proofs)
+        block = slice(mesh.dp * per, (mesh.dp + 1) * per)
+        crs_b = CRSBatch.from_keys(params, list(crs_keys)[block], mesh.device)
+        state = take(state_b, block, mesh.device)
+        vkeys = None if verifier_keys is None \
+            else list(verifier_keys)[block]
+        orcs = batch_oracles(params, state, crs_b, vkeys, oracle)
+        local = prove_batch_impl(params, witness_b[block].to(mesh.device),
+                                 state, crs_b, orcs, decomp_mode, ctx)
         return Transcript(**{
             f.name: all_gather_cat(getattr(local, f.name), 0, mesh.dp_group,
                                    mesh.stats, "dp_gather")

@@ -210,22 +210,26 @@ def canonical_aggregates(params: LabradorParams, state, proof):
 # ---------------------------------------------------------------------------
 
 def _tri_stream(mat_dig: torch.Tensor, params: LabradorParams) -> torch.Tensor:
-    """(t, r, r, d) digits -> (n_tri, t, d) upper-triangle stream in
-    (i <= j, k) order, the CRS C/D column order."""
+    """(..., t, r, r, d) digits -> (..., n_tri, t, d) upper-triangle stream
+    in (i <= j, k) order, the CRS C/D column order."""
     p = params
-    rows = [mat_dig[:, i, j, :] for i in range(p.r) for j in range(i, p.r)]
-    return torch.stack(rows).contiguous()
+    rows = [mat_dig[..., i, j, :] for i in range(p.r) for j in range(i, p.r)]
+    return torch.stack(rows, dim=-3).contiguous()
 
 
 def ajtai_commit(crs, witness: torch.Tensor,
                  ctx: AxisCtx | None = None) -> torch.Tensor:
     """t_i = A s_i: (r_eff, n, d) residues -> (r_eff, kappa, d).  With
-    ``ctx``: this rank's kappa rows of A, then an all-gather along kappa."""
+    ``ctx``: this rank's kappa rows of A, then an all-gather along kappa.
+    For a ``crs.CRSBatch`` every tensor leads with its instances, here and
+    in ``u1_from_digits`` / ``u2_from_digits``: one launch of each kernel
+    for the batch (the JAX package's vmap), every instance taking the same
+    range under ``ctx``."""
     if ctx is None:
         return _ajtai_kernel(crs, witness.contiguous())
     row0, rows = _kappa_shard(crs.params.kappa, ctx)
     t_loc = _ajtai_kernel(crs, witness.contiguous(), row0, rows)
-    return all_gather_cat(t_loc, 1, ctx.group, ctx.stats)
+    return all_gather_cat(t_loc, t_loc.dim() - 2, ctx.group, ctx.stats)
 
 
 def u1_from_digits(crs, t_dig: torch.Tensor, g_dig: torch.Tensor,
@@ -242,7 +246,7 @@ def u1_from_digits(crs, t_dig: torch.Tensor, g_dig: torch.Tensor,
         cterm = cd_sum(crs, g_stream, crs._off_c, p.t_2, p.b_2)
         return zq.add(bterm, cterm, p.q)
     col0, ncols = _kappa_shard(p.kappa, ctx)
-    l0, length = _stream_shard(g_stream.shape[0] * p.t_2, ctx)
+    l0, length = _stream_shard(g_stream.shape[-3] * p.t_2, ctx)
     part = u1_bterm(crs, t_dig.contiguous(), col0, ncols) \
         + cd_sum(crs, g_stream, crs._off_c, p.t_2, p.b_2, l0, length)
     return _sum_partials(part, p.q, ctx)
@@ -257,7 +261,7 @@ def u2_from_digits(crs, h_dig: torch.Tensor, params: LabradorParams,
     h_stream = _tri_stream(h_dig, p)
     if ctx is None:
         return cd_sum(crs, h_stream, crs._off_d, p.t_1)
-    l0, length = _stream_shard(h_stream.shape[0] * p.t_1, ctx)
+    l0, length = _stream_shard(h_stream.shape[-3] * p.t_1, ctx)
     part = cd_sum(crs, h_stream, crs._off_d, p.t_1, 0, l0, length)
     return _sum_partials(part, p.q, ctx)
 

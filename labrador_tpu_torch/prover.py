@@ -9,7 +9,9 @@ the witness's device; on CUDA the kernels run, on the CPU their plain
 versions.  With a ``protocol.AxisCtx`` (``parallel/sharded.py``) the
 three commitments run sharded over a mesh's rows group; everything else
 is computed replicated on every rank, from identical inputs and explicit
-keys, so the replicas agree bit for bit.
+keys, so the replicas agree bit for bit.  ``prove_batch`` proves B
+independent instances together (the JAX package's vmap of
+``prove_impl``), each commitment kernel launched once for the batch.
 """
 
 from __future__ import annotations
@@ -19,14 +21,15 @@ import math
 import torch
 
 from . import protocol, sampling
+from .crs import CRSBatch
 from .keys import Key, fold_in, split
 from .ops import ntt as ntt_ops
 from .ops import zq
 from .ops.modmath import mod_pos, mulmod, sum_sq_u64, to_signed_i32
 from .oracle import (DOM_BPP, DOM_JL, DOM_U1, DOM_U2, FiatShamirOracle,
-                     InteractiveOracle)
+                     InteractiveOracle, batch_oracles, batch_size)
 from .params import LabradorParams
-from .structs import State, Transcript, gram_hat
+from .structs import State, Transcript, gram_hat, stack, take
 
 # Verifier-randomness derivation tags (protocol message order)
 TAG_JL = 0
@@ -153,15 +156,20 @@ def _jl_with_retries(key, witness_flat: torch.Tensor,
     return pi, proj, ok
 
 
+def _gram(witness: torch.Tensor, plan) -> torch.Tensor:
+    """The Gram matrix g_ij = <s_i, s_j> (r, r, d) of one witness."""
+    return ntt_ops.ntt_inv_modq(gram_hat(ntt_ops.ntt_fwd(witness, plan),
+                                         plan), plan)
+
+
 def prove_phase1(params: LabradorParams, witness: torch.Tensor, state: State,
                  crs, oracle, ost, decomp_mode: str = "reference",
                  ctx: protocol.AxisCtx | None = None):
     """Steps 1-3: Ajtai t (kernel), Gram g, outer commitment u1 (kernels)."""
     p = params
     plan = ntt_ops.plan_for(p)
-    s_hat = ntt_ops.ntt_fwd(witness, plan)
     t = protocol.ajtai_commit(crs, witness, ctx)
-    g = ntt_ops.ntt_inv_modq(gram_hat(s_hat, plan), plan)
+    g = _gram(witness, plan)
     t_dig = protocol.decompose_t(t, p, decomp_mode)
     g_dig = protocol.decompose_g(g, p, decomp_mode)
     u_1 = protocol.u1_from_digits(crs, t_dig, g_dig, p, ctx)
@@ -187,10 +195,18 @@ def prove_phase2b(params: LabradorParams, witness: torch.Tensor,
                   ctx: protocol.AxisCtx | None = None):
     """Steps 5-8: both aggregations, h, u2 (kernel)."""
     p = params
+    ost, out = _aggregate_h(p, witness, state, oracle, ost, ph1["g"], ph2a)
+    h_dig = protocol.decompose_h(out["h"], p, decomp_mode)
+    return ost, {**out, "u_2": protocol.u2_from_digits(crs, h_dig, p, ctx)}
+
+
+def _aggregate_h(params: LabradorParams, witness: torch.Tensor, state: State,
+                 oracle, ost, g: torch.Tensor, ph2a: dict):
+    """Steps 5-7 of one instance: both aggregations and h (no CRS)."""
+    p = params
     dev = witness.device
     plan = ntt_ops.plan_for(p)
     s_hat = ntt_ops.ntt_fwd(witness, plan)
-    g = ph1["g"]
     pi, projection = ph2a["pi"], ph2a["projection"]
 
     # -- step 5: first aggregation (proofgen.rs:189-289)
@@ -237,12 +253,10 @@ def prove_phase2b(params: LabradorParams, witness: torch.Tensor,
                                 torch.swapaxes(s_hat, -3, -2), plan)
     m = ntt_ops.ntt_inv_modq(m_hat, plan)
     h = mulmod(mod_pos(m + torch.swapaxes(m, 0, 1), p.q), p.inv2, p.q)
-
-    # -- step 8: outer commitment u2 (proofgen.rs:364-378)
-    h_dig = protocol.decompose_h(h, p, decomp_mode)
-    u_2 = protocol.u2_from_digits(crs, h_dig, p, ctx)
+    # (step 8, the outer commitment u2 of h's digits, proofgen.rs:364-378,
+    # follows in the caller: one kernel launch for one instance or a batch)
     return ost, dict(psi=psi, omega=omega, b_prime_prime=b_pp, alpha=alpha,
-                     beta=beta, u_2=u_2, h=h,
+                     beta=beta, h=h,
                      b_pp_ok=torch.tensor(b_pp_ok, device=dev))
 
 
@@ -250,17 +264,25 @@ def prove_phase3(params: LabradorParams, witness: torch.Tensor, oracle, ost,
                  ph2: dict):
     """Step 9: amortized opening z = sum_i c_i s_i."""
     p = params
-    dev = witness.device
-    plan = ntt_ops.plan_for(p)
-    s_hat = ntt_ops.ntt_fwd(witness, plan)
     ost = oracle.absorb(ost, DOM_U2, [ph2["u_2"]])
-    c = torch.stack([sampling.sample_challenge(
-        oracle.challenge_key(ost, TAG_CHALLENGE, i), p, dev)
-        for i in range(p.r)])
+    c = sampling.sample_challenges(_challenge_keys(p, oracle, ost), p,
+                                   witness.device)
+    return dict(c=c, z=_opening(p, witness, c))
+
+
+def _challenge_keys(params: LabradorParams, oracle, ost) -> list:
+    return [oracle.challenge_key(ost, TAG_CHALLENGE, i)
+            for i in range(params.r)]
+
+
+def _opening(params: LabradorParams, witness: torch.Tensor,
+             c: torch.Tensor) -> torch.Tensor:
+    """z = sum_i c_i s_i (n, d) of one instance."""
+    plan = ntt_ops.plan_for(params)
+    s_hat = ntt_ops.ntt_fwd(witness, plan)
     c_hat = ntt_ops.ntt_fwd(c, plan)
     prod = ntt_ops.eval_mul(c_hat[:, :, None, :], s_hat, plan)
-    z = ntt_ops.ntt_inv_modq(ntt_ops._mod_sum_p(prod, plan, axis=1), plan)
-    return dict(c=c, z=z)
+    return ntt_ops.ntt_inv_modq(ntt_ops._mod_sum_p(prod, plan, axis=1), plan)
 
 
 def prove_impl(params: LabradorParams, witness: torch.Tensor, state: State,
@@ -298,6 +320,84 @@ def prove_fs(params: LabradorParams, witness: torch.Tensor, state: State,
     return prove_impl(params, witness, state, crs,
                       FiatShamirOracle.create(crs.key, state, params),
                       decomp_mode, ctx)
+
+
+def _check_batch(crs_b, witness_b: torch.Tensor, n_oracles: int) -> int:
+    """The batch size B of a batched prove; refuses anything but a
+    ``crs.CRSBatch`` of B Threefry CRSs, B witnesses and B oracles."""
+    B = batch_size(crs_b)
+    if witness_b.shape[0] != B or n_oracles != B:
+        raise ValueError(f"a batch of {B} CRSs with {witness_b.shape[0]} "
+                         f"witnesses and {n_oracles} oracles")
+    return B
+
+
+def prove_batch_impl(params: LabradorParams, witness_b: torch.Tensor,
+                     state_b: State, crs_b: CRSBatch, oracles: list,
+                     decomp_mode: str = "reference",
+                     ctx: protocol.AxisCtx | None = None) -> Transcript:
+    """B independent instances proved together: the counterpart of
+    ``jax.vmap`` of the JAX package's ``prove_impl`` over (witness, state,
+    CRS key, oracle).  ``witness_b`` (B, r, n, d) and the fields of
+    ``state_b`` lead with B; ``crs_b`` is a ``crs.CRSBatch``; ``oracles``
+    one an instance.  Each call site of kernels 2-4 (Ajtai, the u1 B- and
+    C-terms, u2) launches once for the batch (their batch modes; under
+    ``ctx`` every instance takes the same range, as vmap inside
+    shard_map), and the challenges of all instances are drawn in lockstep
+    (``sampling.sample_challenges``).  The rest runs in a loop over the
+    instances: the Gram matrices, the JL projection with its retries
+    (which differ by instance), both aggregations and h, the oracle
+    absorbs and the opening z.  Returns a Transcript whose fields lead
+    with B; instance b equals ``prove_impl`` of instance b bit for bit."""
+    p = params
+    B = _check_batch(crs_b, witness_b, len(oracles))
+    plan = ntt_ops.plan_for(p)
+    states = [take(state_b, b) for b in range(B)]
+    osts = [o.init() for o in oracles]
+
+    # steps 1-3: t and u1, one launch of each kernel for the batch
+    t = protocol.ajtai_commit(crs_b, witness_b, ctx)
+    g = torch.stack([_gram(witness_b[b], plan) for b in range(B)])
+    t_dig = protocol.decompose_t(t, p, decomp_mode).movedim(0, 1)
+    g_dig = protocol.decompose_g(g, p, decomp_mode).movedim(0, 1)
+    u_1 = protocol.u1_from_digits(crs_b, t_dig, g_dig, p, ctx)
+
+    # steps 4-7 per instance: JL (its own retries), aggregations, h
+    ph2 = []
+    for b in range(B):
+        osts[b], ph2a = prove_phase2a(p, witness_b[b], states[b], None,
+                                      oracles[b], osts[b], {"u_1": u_1[b]})
+        osts[b], ph2b = _aggregate_h(p, witness_b[b], states[b],
+                                     oracles[b], osts[b], g[b], ph2a)
+        ph2.append({**ph2a, **ph2b})
+
+    # step 8: u2, one launch for the batch
+    h_dig = protocol.decompose_h(torch.stack([x["h"] for x in ph2]), p,
+                                 decomp_mode).movedim(0, 1)
+    u_2 = protocol.u2_from_digits(crs_b, h_dig, p, ctx)
+
+    # step 9: every instance's challenges in lockstep, then the openings
+    keys = []
+    for b in range(B):
+        osts[b] = oracles[b].absorb(osts[b], DOM_U2, [u_2[b]])
+        keys += _challenge_keys(p, oracles[b], osts[b])
+    c = sampling.sample_challenges(keys, p, witness_b.device).reshape(
+        B, p.r, p.d)
+    return stack([Transcript(t=t[b], g=g[b], u_1=u_1[b], u_2=u_2[b],
+                             c=c[b], z=_opening(p, witness_b[b], c[b]),
+                             **ph2[b]) for b in range(B)])
+
+
+def prove_batch(params: LabradorParams, witness_b: torch.Tensor,
+                state_b: State, crs_b: CRSBatch, verifier_keys=None,
+                oracle: str = "interactive", decomp_mode: str = "reference",
+                ctx: protocol.AxisCtx | None = None) -> Transcript:
+    """B proofs in one batch (``prove_batch_impl``): interactive, from one
+    verifier key an instance, or Fiat-Shamir (``oracle="fs"``)."""
+    return prove_batch_impl(
+        params, witness_b, state_b, crs_b,
+        batch_oracles(params, state_b, crs_b, verifier_keys, oracle),
+        decomp_mode, ctx)
 
 
 def _instance_meta(params: LabradorParams, decomp_mode: str) -> dict:

@@ -141,11 +141,47 @@ def challenge_rejected(c_centered, d: int) -> np.ndarray:
     return operator_norm_sq(c_centered, d) > np.float32(225)
 
 
-def _draw_challenge(key: Key, d: int) -> torch.Tensor:
-    kp, ks = keys.split(key)
-    perm = keys.permutation(kp, _challenge_multiset(d))
-    signs = keys.bernoulli(ks, 0.5, (d,), device="cpu")
+def _draw_challenges(ks: list, d: int) -> torch.Tensor:
+    """(len(ks), d) centred challenge draws, one a key, each a signed
+    permutation of the fixed multiset (the JAX package's ``draw``); the
+    draws of Threefry keys run as one batch of host tensor ops."""
+    kp, kb = zip(*keys.split_stack(list(ks)))
+    perm = keys.permutation_stack(list(kp), _challenge_multiset(d))
+    signs = keys.bernoulli_stack(list(kb), 0.5, (d,), device="cpu")
     return torch.where(signs & (perm > 0), -perm, perm)
+
+
+def _draw_challenge(key: Key, d: int) -> torch.Tensor:
+    return _draw_challenges([key], d)[0]
+
+
+def sample_challenges(ks: list, params: LabradorParams,
+                      device="cuda") -> torch.Tensor:
+    """(len(ks), d): ``sample_challenge`` of each key, as
+    ``jax.vmap(sample_challenge)`` runs its rejection ``while_loop`` in
+    lockstep: every key follows its own chain, fold_in(k, 0) and then
+    fold_in(., 1) per redraw, each round redraws only the keys still
+    rejected (an accepted challenge keeps its value), and one batched
+    float32 evaluation decides the round.  So each row equals the
+    single-key draw bit for bit.  Residues mod q at small q, signed at big
+    q (the JAX package's convention there)."""
+    p = params
+    cur = keys.fold_in_stack(list(ks), 0)
+    centered = _draw_challenges(cur, p.d) if cur else \
+        torch.zeros((0, p.d), dtype=torch.int64)
+    todo = list(range(len(cur)))
+    for _ in range(_MAX_CHALLENGE_DRAWS):
+        rejected = challenge_rejected(centered[todo], p.d)
+        todo = [i for i, rej in zip(todo, rejected) if rej]
+        if not todo:
+            if zq.is_big(p.q):
+                return centered.to(device)
+            return mod_pos(centered, p.q).to(device)
+        redraw = keys.fold_in_stack([cur[i] for i in todo], 1)
+        for i, k in zip(todo, redraw):
+            cur[i] = k
+        centered[todo] = _draw_challenges(redraw, p.d)
+    raise RuntimeError("challenge rejection did not terminate")
 
 
 def sample_challenge(key: Key, params: LabradorParams,
@@ -154,17 +190,7 @@ def sample_challenge(key: Key, params: LabradorParams,
     redrawn (key folded with 1) while its operator norm exceeds T = 15.
     Drawn on the host (64 values) and returned as residues mod q at small
     q; at big q kept signed, the JAX package's convention there."""
-    p = params
-    k = keys.fold_in(key, 0)
-    centered = _draw_challenge(k, p.d)
-    for _ in range(_MAX_CHALLENGE_DRAWS):
-        if not challenge_rejected(centered, p.d):
-            if zq.is_big(p.q):
-                return centered.to(device)
-            return mod_pos(centered, p.q).to(device)
-        k = keys.fold_in(k, 1)
-        centered = _draw_challenge(k, p.d)
-    raise RuntimeError("challenge rejection did not terminate")
+    return sample_challenges([key], params, device)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -66,6 +66,28 @@ class Transcript:
         return dataclasses.replace(self, **changes)
 
 
+def stack(objs: list):
+    """A batch of instances' States (or Transcripts): each field stacked
+    along a new leading axis, as ``jax.tree.map(jnp.stack, ...)`` batches
+    the JAX package's pytrees for its vmap (``prover.prove_batch``,
+    ``parallel/sharded.py``)."""
+    return type(objs[0])(**{f.name: torch.stack([getattr(o, f.name)
+                                                 for o in objs])
+                            for f in dataclasses.fields(objs[0])})
+
+
+def take(batch, b=None, device=None):
+    """Instance b of a batch of States or Transcripts (an index; a slice
+    gives a sub-batch; all of it when None), on ``device`` (where it lies
+    when None)."""
+    def one(x: torch.Tensor) -> torch.Tensor:
+        x = x if b is None else x[b]
+        return x if device is None else x.to(device)
+
+    return type(batch)(**{f.name: one(getattr(batch, f.name))
+                          for f in dataclasses.fields(batch)})
+
+
 # every transcript message field but ``pi`` (as the JAX package's list)
 TRANSCRIPT_FIELDS = ("u_1", "u_2", "t", "g", "h", "z", "c", "projection",
                      "psi", "omega", "b_prime_prime", "alpha", "beta")

@@ -7,17 +7,21 @@ with the same report keys, for a dense ``structs.State`` or (interactive
 only) a ``recursion.FoldedState``.  Checks 15, 19 and 20
 re-expand the CRS through the commitment kernels (CUDA tensors) or their
 plain versions (CPU tensors), sharded over a mesh's rows group when
-``verify_report`` is given a ``protocol.AxisCtx``.
+``verify_report`` is given a ``protocol.AxisCtx``.  ``verify_report_batch``
+verifies B independent proofs, each of those kernels launched once for
+the batch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
 import torch
 
 from . import protocol, sampling
+from .crs import CRSBatch
 from .keys import fold_in
 from .ops import ntt as ntt_ops
 from .ops import zq
@@ -26,7 +30,7 @@ from .oracle import DOM_BPP, DOM_JL, DOM_U1, DOM_U2, FiatShamirOracle
 from .params import LabradorParams
 from .prover import (JL_MAX_ATTEMPTS, TAG_ALPHA, TAG_BETA, TAG_CHALLENGE,
                      TAG_JL, TAG_OMEGA, TAG_PSI, sample_jl)
-from .structs import State, Transcript
+from .structs import State, Transcript, take
 
 
 # XLA on the CPU splits a float32 sum over a dimension longer than 32
@@ -98,102 +102,183 @@ def check14_norm_bound(p: LabradorParams, z, z_dig, t_dig, g_dig, h_dig,
     raise ValueError(f"unknown norm_mode {norm_mode!r}")
 
 
-def verify_report(params: LabradorParams, state: State, proof: Transcript,
-                  crs, decomp_mode: str = "reference",
-                  norm_mode: str = "exact",
-                  ctx: protocol.AxisCtx | None = None) -> dict:
-    """All checks as {name: bool}, plus 'all' (checks 8-20) and
-    'all_with_bpp' (also the b'' constant term).  With ``ctx`` checks 15,
-    19 and 20 run sharded over its group (``parallel/sharded.py``)."""
-    p = params
+def _section(timer, name: str):
+    """``timer.phase(name)`` (a ``utils.profiling.PhaseTimer``: device
+    syncs around the section) where a timer is given, else nothing."""
+    return timer.phase(name) if timer is not None \
+        else contextlib.nullcontext()
+
+
+def _local_checks(p: LabradorParams, state: State, proof: Transcript,
+                  decomp_mode: str, norm_mode: str,
+                  timer=None) -> tuple[dict, dict]:
+    """Every check of one proof that needs no CRS, and the operands of the
+    three that re-expand it (15, 19, 20): the centred z, the right side
+    of check 15, and the t, g and h digits.  With ``timer`` each section
+    is timed under its check's name (a tensor shared by several checks
+    counts in the first)."""
     plan = ntt_ops.plan_for(p)
     checks: dict[str, bool] = {}
 
     # ---- lines 3-7: recomputation (verification.rs:38-148)
-    a_fin, phi_fin, b = protocol.canonical_aggregates(p, state, proof)
-    a_fin_hat = ntt_ops.ntt_fwd(a_fin, plan)
-    phi_fin_hat = ntt_ops.ntt_fwd(phi_fin, plan)
+    with _section(timer, "aggregates"):
+        a_fin, phi_fin, b = protocol.canonical_aggregates(p, state, proof)
+        a_fin_hat = ntt_ops.ntt_fwd(a_fin, plan)
+        phi_fin_hat = ntt_ops.ntt_fwd(phi_fin, plan)
 
     # ---- checks 8-9: symmetry (verification.rs:157-178)
-    checks["c08_g_symmetric"] = zq.all_eq(proof.g, torch.swapaxes(proof.g, 0, 1))
-    checks["c09_h_symmetric"] = zq.all_eq(proof.h, torch.swapaxes(proof.h, 0, 1))
+    with _section(timer, "c08_c09_symmetric"):
+        checks["c08_g_symmetric"] = zq.all_eq(proof.g,
+                                              torch.swapaxes(proof.g, 0, 1))
+        checks["c09_h_symmetric"] = zq.all_eq(proof.h,
+                                              torch.swapaxes(proof.h, 0, 1))
 
     # ---- lines 10-13: decompositions (verification.rs:185-225)
-    z_dig = protocol.decompose_z(proof.z, p, decomp_mode)
-    t_dig = protocol.decompose_t(proof.t, p, decomp_mode)
-    g_dig = protocol.decompose_g(proof.g, p, decomp_mode)
-    h_dig = protocol.decompose_h(proof.h, p, decomp_mode)
+    with _section(timer, "decompositions"):
+        z_dig = protocol.decompose_z(proof.z, p, decomp_mode)
+        t_dig = protocol.decompose_t(proof.t, p, decomp_mode)
+        g_dig = protocol.decompose_g(proof.g, p, decomp_mode)
+        h_dig = protocol.decompose_h(proof.h, p, decomp_mode)
 
     # ---- check 14: digit norm bound (verification.rs:231-267)
-    checks["c14_norm_bound"] = check14_norm_bound(
-        p, proof.z, z_dig, t_dig, g_dig, h_dig, norm_mode)
+    with _section(timer, "c14_norm_bound"):
+        checks["c14_norm_bound"] = check14_norm_bound(
+            p, proof.z, z_dig, t_dig, g_dig, h_dig, norm_mode)
 
-    # ---- check 15: A z == sum_i c_i t_i (verification.rs:274-296)
+    # ---- check 15's right side, sum_i c_i t_i (verification.rs:274-296);
     # z enters the kernel centred and wrapped to int32, the JAX package's
     # to_signed_small at big q (the identity on every valid z)
-    z_hat = ntt_ops.ntt_fwd(proof.z, plan)
-    z_c = to_signed_i32(zq.to_signed_small(mod_pos(proof.z, p.q), p.q))
-    lhs = protocol.ajtai_commit(crs, z_c[None], ctx)[0]
-    c_hat = ntt_ops.ntt_fwd(proof.c, plan)
-    t_hat = ntt_ops.ntt_fwd(proof.t, plan)
-    rhs = ntt_ops.ntt_inv_modq(ntt_ops._mod_sum_p(
-        ntt_ops.eval_mul(c_hat[:, :, None, :], t_hat, plan), plan, axis=1),
-        plan)
-    checks["c15_az_vs_ct"] = zq.all_eq(lhs, rhs)
+    with _section(timer, "c15_az_vs_ct"):
+        z_c = to_signed_i32(zq.to_signed_small(mod_pos(proof.z, p.q), p.q))
+        c_hat = ntt_ops.ntt_fwd(proof.c, plan)
+        t_hat = ntt_ops.ntt_fwd(proof.t, plan)
+        rhs15 = ntt_ops.ntt_inv_modq(ntt_ops._mod_sum_p(
+            ntt_ops.eval_mul(c_hat[:, :, None, :], t_hat, plan), plan,
+            axis=1), plan)
 
     # ---- check 16: <z,z> == sum_ij g_ij c_i c_j (verification.rs:303-314)
     P = plan.n_primes
-    zz = ntt_ops.polyvec_inner_product(proof.z, proof.z, plan)
-    g_hat = ntt_ops.ntt_fwd(proof.g, plan)
-    cc = ntt_ops.ntt_inv_modq(
-        ntt_ops.eval_mul(c_hat[:, :, None, :], c_hat[:, None, :, :], plan),
-        plan)
-    cc_hat = ntt_ops.ntt_fwd(cc, plan)
-    rhs16 = ntt_ops.ntt_inv_modq(ntt_ops._mod_sum_p(
-        ntt_ops.eval_mul(g_hat, cc_hat, plan).reshape(P, -1, p.d), plan,
-        axis=1), plan)
-    checks["c16_zz_vs_gcc"] = zq.all_eq(zz, rhs16)
+    with _section(timer, "c16_zz_vs_gcc"):
+        zz = ntt_ops.polyvec_inner_product(proof.z, proof.z, plan)
+        g_hat = ntt_ops.ntt_fwd(proof.g, plan)
+        cc = ntt_ops.ntt_inv_modq(
+            ntt_ops.eval_mul(c_hat[:, :, None, :], c_hat[:, None, :, :],
+                             plan), plan)
+        cc_hat = ntt_ops.ntt_fwd(cc, plan)
+        rhs16 = ntt_ops.ntt_inv_modq(ntt_ops._mod_sum_p(
+            ntt_ops.eval_mul(g_hat, cc_hat, plan).reshape(P, -1, p.d), plan,
+            axis=1), plan)
+        checks["c16_zz_vs_gcc"] = zq.all_eq(zz, rhs16)
 
     # ---- check 17: sum_i <phi_i,z> c_i == sum_ij h_ij c_i c_j
-    h_hat = ntt_ops.ntt_fwd(proof.h, plan)
-    piz = ntt_ops.ntt_inv_modq(ntt_ops._mod_sum_p(
-        ntt_ops.eval_mul(phi_fin_hat, z_hat[:, None, :, :], plan), plan,
-        axis=2), plan)
-    piz_hat = ntt_ops.ntt_fwd(piz, plan)
-    lhs17 = ntt_ops.ntt_inv_modq(ntt_ops._mod_sum_p(
-        ntt_ops.eval_mul(piz_hat, c_hat, plan), plan, axis=1), plan)
-    rhs17 = ntt_ops.ntt_inv_modq(ntt_ops._mod_sum_p(
-        ntt_ops.eval_mul(h_hat, cc_hat, plan).reshape(P, -1, p.d), plan,
-        axis=1), plan)
-    checks["c17_phiz_vs_hcc"] = zq.all_eq(lhs17, rhs17)
+    with _section(timer, "c17_phiz_vs_hcc"):
+        z_hat = ntt_ops.ntt_fwd(proof.z, plan)
+        h_hat = ntt_ops.ntt_fwd(proof.h, plan)
+        piz = ntt_ops.ntt_inv_modq(ntt_ops._mod_sum_p(
+            ntt_ops.eval_mul(phi_fin_hat, z_hat[:, None, :, :], plan), plan,
+            axis=2), plan)
+        piz_hat = ntt_ops.ntt_fwd(piz, plan)
+        lhs17 = ntt_ops.ntt_inv_modq(ntt_ops._mod_sum_p(
+            ntt_ops.eval_mul(piz_hat, c_hat, plan), plan, axis=1), plan)
+        rhs17 = ntt_ops.ntt_inv_modq(ntt_ops._mod_sum_p(
+            ntt_ops.eval_mul(h_hat, cc_hat, plan).reshape(P, -1, p.d), plan,
+            axis=1), plan)
+        checks["c17_phiz_vs_hcc"] = zq.all_eq(lhs17, rhs17)
 
     # ---- check 18: sum_ij a_ij g_ij + sum_i h_ii == b (verification.rs:340-352)
-    s1 = ntt_ops.ntt_inv_modq(ntt_ops._mod_sum_p(
-        ntt_ops.eval_mul(a_fin_hat, g_hat, plan).reshape(P, -1, p.d), plan,
-        axis=1), plan)
-    s2 = mod_pos(torch.sum(torch.remainder(
-        torch.diagonal(proof.h, dim1=0, dim2=1).T, p.q), dim=0), p.q)
-    checks["c18_agg_relation"] = bool(torch.all(mod_pos(s1 + s2 - b, p.q)
-                                                == 0))
-
-    # ---- check 19: recompute u1 (verification.rs:357-415)
-    u1_cand = protocol.u1_from_digits(crs, t_dig, g_dig, p, ctx)
-    checks["c19_u1"] = zq.all_eq(u1_cand, proof.u_1)
-
-    # ---- check 20: recompute u2 (verification.rs:421-434)
-    u2_cand = protocol.u2_from_digits(crs, h_dig, p, ctx)
-    checks["c20_u2"] = zq.all_eq(u2_cand, proof.u_2)
+    with _section(timer, "c18_agg_relation"):
+        s1 = ntt_ops.ntt_inv_modq(ntt_ops._mod_sum_p(
+            ntt_ops.eval_mul(a_fin_hat, g_hat, plan).reshape(P, -1, p.d),
+            plan, axis=1), plan)
+        s2 = mod_pos(torch.sum(torch.remainder(
+            torch.diagonal(proof.h, dim1=0, dim2=1).T, p.q), dim=0), p.q)
+        checks["c18_agg_relation"] = bool(torch.all(
+            mod_pos(s1 + s2 - b, p.q) == 0))
 
     # ---- b'' constant-term consistency (verification.rs:532-551)
-    expected = protocol.b_pp_expected_const(
-        proof.omega, proof.psi, proof.projection,
-        state.b_prime_k[:p.l_count], p.q)
-    checks["c21_b_pp_const"] = zq.all_eq(proof.b_prime_prime[:, 0], expected)
+    with _section(timer, "c21_b_pp_const"):
+        expected = protocol.b_pp_expected_const(
+            proof.omega, proof.psi, proof.projection,
+            state.b_prime_k[:p.l_count], p.q)
+        checks["c21_b_pp_const"] = zq.all_eq(proof.b_prime_prime[:, 0],
+                                             expected)
+    return checks, dict(z_c=z_c, rhs15=rhs15, t_dig=t_dig, g_dig=g_dig,
+                        h_dig=h_dig)
 
-    checks["all"] = all(v for k, v in checks.items()
-                        if not k.startswith("c21"))
-    checks["all_with_bpp"] = checks["all"] and checks["c21_b_pp_const"]
-    return checks
+
+def _report(checks: dict, rhs15: torch.Tensor, lhs15: torch.Tensor,
+            u1_cand: torch.Tensor, u2_cand: torch.Tensor,
+            proof: Transcript) -> dict:
+    """The report of one proof, in the reference's check order, from its
+    local checks and the CRS side of checks 15, 19 (verification.rs:357-415)
+    and 20 (verification.rs:421-434)."""
+    crs_side = {"c15_az_vs_ct": zq.all_eq(lhs15, rhs15),
+                "c19_u1": zq.all_eq(u1_cand, proof.u_1),
+                "c20_u2": zq.all_eq(u2_cand, proof.u_2)}
+    order = ("c08_g_symmetric", "c09_h_symmetric", "c14_norm_bound",
+             "c15_az_vs_ct", "c16_zz_vs_gcc", "c17_phiz_vs_hcc",
+             "c18_agg_relation", "c19_u1", "c20_u2", "c21_b_pp_const")
+    out = {k: checks[k] if k in checks else crs_side[k] for k in order}
+    out["all"] = all(v for k, v in out.items() if not k.startswith("c21"))
+    out["all_with_bpp"] = out["all"] and out["c21_b_pp_const"]
+    return out
+
+
+def verify_report(params: LabradorParams, state: State, proof: Transcript,
+                  crs, decomp_mode: str = "reference",
+                  norm_mode: str = "exact",
+                  ctx: protocol.AxisCtx | None = None, timer=None) -> dict:
+    """All checks as {name: bool}, plus 'all' (checks 8-20) and
+    'all_with_bpp' (also the b'' constant term).  With ``ctx`` checks 15,
+    19 and 20 run sharded over its group (``parallel/sharded.py``).  With
+    ``timer`` (a ``utils.profiling.PhaseTimer``) each check's section is
+    timed under its name, between device syncs; without one nothing
+    syncs."""
+    p = params
+    checks, ops = _local_checks(p, state, proof, decomp_mode, norm_mode,
+                                timer)
+    with _section(timer, "c15_az_vs_ct"):
+        lhs15 = protocol.ajtai_commit(crs, ops["z_c"][None], ctx)[0]
+    with _section(timer, "c19_u1"):
+        u1_cand = protocol.u1_from_digits(crs, ops["t_dig"], ops["g_dig"],
+                                          p, ctx)
+    with _section(timer, "c20_u2"):
+        u2_cand = protocol.u2_from_digits(crs, ops["h_dig"], p, ctx)
+    return _report(checks, ops["rhs15"], lhs15, u1_cand, u2_cand, proof)
+
+
+def verify_report_batch(params: LabradorParams, state_b: State,
+                        proof_b: Transcript, crs_b: CRSBatch,
+                        decomp_mode: str = "reference",
+                        norm_mode: str = "exact",
+                        ctx: protocol.AxisCtx | None = None) -> dict:
+    """``verify_report`` of B independent proofs (the JAX package's vmap
+    of ``verify_report_impl``): ``state_b`` and ``proof_b`` lead with B,
+    ``crs_b`` is a ``crs.CRSBatch``.  Returns {check: bool tensor (B,)} on
+    the proofs' device.  The CRS re-expansions of checks 15, 19 and 20
+    launch each kernel once for the batch (sharded over ``ctx``'s group
+    when given); the checks that need no CRS run in a loop over the
+    instances."""
+    p = params
+    if not isinstance(crs_b, CRSBatch):
+        raise TypeError(f"batched verification takes a crs.CRSBatch of "
+                        f"Threefry CRSs, not {type(crs_b).__name__}")
+    B = len(crs_b)
+    proofs = [take(proof_b, b) for b in range(B)]
+    local = [_local_checks(p, take(state_b, b), proofs[b], decomp_mode,
+                           norm_mode) for b in range(B)]
+
+    def ops(name: str) -> torch.Tensor:
+        return torch.stack([o[name] for _, o in local])
+
+    lhs15 = protocol.ajtai_commit(crs_b, ops("z_c")[:, None], ctx)[:, 0]
+    u1_cand = protocol.u1_from_digits(crs_b, ops("t_dig"), ops("g_dig"), p,
+                                      ctx)
+    u2_cand = protocol.u2_from_digits(crs_b, ops("h_dig"), p, ctx)
+    reports = [_report(local[b][0], local[b][1]["rhs15"], lhs15[b],
+                       u1_cand[b], u2_cand[b], proofs[b]) for b in range(B)]
+    return {k: torch.tensor([r[k] for r in reports],
+                            device=proof_b.z.device) for k in reports[0]}
 
 
 def verify(params: LabradorParams, state: State, proof: Transcript, crs,
@@ -253,9 +338,9 @@ def fs_challenge_report(params: LabradorParams, state: State,
     checks["fs_beta"] = zq.all_eq(beta, proof.beta)
 
     ost = oracle.absorb(ost, DOM_U2, [proof.u_2])
-    c = torch.stack([sampling.sample_challenge(
-        oracle.challenge_key(ost, TAG_CHALLENGE, i), p, dev)
-        for i in range(p.r)])
+    c = sampling.sample_challenges(
+        [oracle.challenge_key(ost, TAG_CHALLENGE, i) for i in range(p.r)],
+        p, dev)
     checks["fs_challenge"] = zq.all_eq(c, proof.c)
 
     checks["fs_all"] = all(checks.values())
