@@ -24,15 +24,49 @@ from labrador_tpu.utils.compile_cache import enable_persistent_cache  # noqa: E4
 
 enable_persistent_cache()
 
+# The JAX package's Pallas kernels run in TPU-interpret mode here.  An
+# eager kernel call can return while the interpreter's io_callbacks (jax
+# 0.9.0) still run, and they dispatch jnp ops from their own thread.  Under
+# the 6-worker tier-1 command such a dispatch and the main thread's next
+# one (mod_pos after ajtai_commit_pallas or cd_sum_pallas, or the XLA path
+# a test compares with) now and then deadlocked, both threads blocked in
+# the dispatch.  So an eager kernel call here returns only once its output
+# is ready and its callbacks have ended.
+from jax.experimental import pallas as _pallas  # noqa: E402
+
+_pallas_call = _pallas.pallas_call
+
+
+def _pallas_call_to_its_end(*args, **kwargs):
+    kernel = _pallas_call(*args, **kwargs)
+
+    def call(*operands, **kw):
+        out = kernel(*operands, **kw)
+        if not any(isinstance(x, jax.core.Tracer)
+                   for x in jax.tree.leaves(out)):
+            jax.block_until_ready(out)
+            jax.effects_barrier()
+        return out
+
+    return call
+
+
+_pallas.pallas_call = _pallas_call_to_its_end
+
 import pytest  # noqa: E402
+
+# tests/time_limit.py: a time limit for each test (the `time_limit` marker)
+pytest_plugins = ("time_limit",)
 
 
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs a CUDA device; skips where there is none")
     config.addinivalue_line(
-        "markers", "slow: regenerates a golden file from the JAX package "
-        "(minutes); deselected by the tier-1 command's -m 'not slow'")
+        "markers", "slow: minutes of JAX-package work that a golden file "
+        "under labrador_tpu_torch/golden/ records (the file's regenerator, "
+        "or a flow it pins); deselected by the tier-1 command's "
+        "-m 'not slow'")
 
 
 @pytest.fixture

@@ -118,6 +118,7 @@ def test_verify_f64_reference_norm_mode(setup):
     assert bool(rep["all"])
 
 
+@pytest.mark.time_limit(90)
 def test_prove_pallas_backend_matches_xla(setup):
     """kernel_backend='pallas' produces the identical transcript (Ajtai via
     the fused kernel), interpret mode on CPU."""

@@ -2,6 +2,7 @@
 (run in TPU-interpret mode on CPU)."""
 
 import numpy as np
+import pytest
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
@@ -12,6 +13,7 @@ P = LabradorParams(n=2, r=2)
 PLAN = ntt.plan_for(P)
 
 
+@pytest.mark.time_limit(60)
 def test_fused_polymul_matches_xla():
     rng = np.random.default_rng(7)
     a = jnp.asarray(rng.integers(0, P.q, (500, 64)), jnp.int32)
@@ -22,6 +24,7 @@ def test_fused_polymul_matches_xla():
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
+@pytest.mark.time_limit(60)
 def test_fused_polymul_block_padding():
     """Sizes above BLOCK exercise the grid + padding path."""
     rng = np.random.default_rng(8)
@@ -34,6 +37,7 @@ def test_fused_polymul_block_padding():
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
+@pytest.mark.time_limit(60)
 def test_fused_polymul_hoisted_bhat_matches_xla():
     """The hoisted-operand kernel (b pre-transformed, its forward paid
     once) must agree bit-for-bit with the XLA path — including above BLOCK
@@ -49,6 +53,7 @@ def test_fused_polymul_hoisted_bhat_matches_xla():
         np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
+@pytest.mark.time_limit(240)
 def test_fused_ajtai_matches_xla():
     """The fused PRG + circulant-MXU-matmul Ajtai kernel must be
     bit-identical to the streamed XLA path (the second config exercises the
@@ -70,6 +75,7 @@ def test_fused_ajtai_matches_xla():
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.time_limit(360)
 def test_fused_u1_bterm_matches_xla():
     """The fused u1 B-term kernel (PRG + circulant MXU matmul) must be
     bit-identical to the XLA streamed u1 path; checked through the full
@@ -97,6 +103,7 @@ def test_fused_u1_bterm_matches_xla():
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.time_limit(180)
 def test_fused_u2_and_u1_cterm_match_xla():
     """The fused C/D-term kernel (ops/cd_pallas: PRG + circulant MXU
     matmul over the (triangle, digit) stream) must be bit-identical to the
@@ -138,6 +145,7 @@ def test_fused_u2_and_u1_cterm_match_xla():
         np.testing.assert_array_equal(got_c, want_c)
 
 
+@pytest.mark.time_limit(240)
 def test_verify_report_pallas_backend_matches_xla():
     """verify_report(kernel_backend='pallas') — fused kernels inside checks
     15/19/20 — must produce the same per-check report as the XLA backend on
@@ -169,6 +177,7 @@ def test_verify_report_pallas_backend_matches_xla():
         assert bool(got[k]) == bool(want[k]), k
 
 
+@pytest.mark.time_limit(120)
 def test_fused_ajtai_kc_chunked():
     """A shape whose n*d exceeds the 8192 K-block: multiple K grid steps
     accumulate into the same output block."""
@@ -191,6 +200,7 @@ def test_fused_ajtai_kc_chunked():
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.time_limit(420)
 def test_fused_kernels_bigq_match_xla():
     """Big-q (2^32-scale) fused kernels: in-kernel Barrett on the PRG
     words + multi-limb int8 circulants must stay bit-identical to the XLA

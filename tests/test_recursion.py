@@ -117,10 +117,17 @@ def test_folded_residual_streamed(folded_structured):
     assert int(recursion.folded_residual(st, w_bad, p_new)) != 0
 
 
+@pytest.mark.slow
 def test_structured_prove_verify_two_levels(folded_structured):
     """Prove + full verify on the structured folded instance, then fold
     THAT proof again (level 2) and prove + verify it — multi-level
     recursion with no dense relation anywhere.
+
+    ``slow`` (about 6 minutes under the tier-1 command):
+    ``labrador_tpu_torch/golden/two_level.json`` records this flow's
+    transcripts, residuals and verify reports at the same seeds, its
+    ``slow`` regenerator (tests/test_torch_two_level.py) runs the same JAX
+    flow, and tier-1 holds the port's two levels to the file.
 
     Runs in a fresh subprocess: XLA segfaults (compile or
     executable-serialize, reproducibly, at this test) on the level-2

@@ -94,6 +94,7 @@ def _t(a):
     return torch.from_numpy(np.asarray(a, np.int64))
 
 
+@pytest.mark.time_limit(120)
 @pytest.mark.parametrize("r_eff", ["r", 1])
 def test_ajtai_plain_matches_pallas_and_xla(case, jx, r_eff):
     p = case.p
@@ -107,6 +108,7 @@ def test_ajtai_plain_matches_pallas_and_xla(case, jx, r_eff):
     _eq(got, jx.protocol.ajtai_commit(jcrs, s_hat, p, plan))
 
 
+@pytest.mark.time_limit(180)
 def test_u1_bterm_plain_matches_pallas_and_xla(case, jx):
     p = case.p
     plan, jcrs = jx.ntt.plan_for(p), jx.CRS.create(p, SEED)
@@ -121,6 +123,7 @@ def test_u1_bterm_plain_matches_pallas_and_xla(case, jx):
                                         plan))
 
 
+@pytest.mark.time_limit(120)
 @pytest.mark.parametrize("use", ["C", "D"])
 def test_cd_sum_plain_matches_pallas_and_xla(case, jx, use):
     p = case.p
@@ -168,6 +171,7 @@ def _poly_inputs(kind: str):
     return rng.integers(0, q, (d,)), rng.integers(0, q, (5, d))
 
 
+@pytest.mark.time_limit(60)
 @pytest.mark.parametrize("kind", ["padded", "two_sided_broadcast"])
 def test_polymul_plain_matches_pallas_and_xla(jx, kind):
     a, b = _poly_inputs(kind)
@@ -200,6 +204,7 @@ def _bhat_input(jx, kind: str, jplan):
     return a, np.asarray(jx.ntt.ntt_fwd(_j(jx, b), jplan))
 
 
+@pytest.mark.time_limit(60)
 @pytest.mark.parametrize("kind", ["fixed", "per_row", "random_residues"])
 def test_polymul_bhat_plain_matches_pallas_and_xla(jx, kind):
     jplan, tplan = jx.ntt.plan_for(POLY_P), tntt.plan_for(POLY_P)
