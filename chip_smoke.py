@@ -9,7 +9,7 @@ JAX golden digests and at the 2^14 base, and does the same at the
 the JL projection on a witness of 8,388,608 coefficients, above the
 4,194,303 where the port's projection used to stop, exact on the rows it
 checks against numpy.  Then the Fiat-Shamir mode (``cli --fs``): the
-device SHA-256 stream held equal to hashlib, config-1 ``--fs`` at both
+SHA-256 stream kernel held equal to hashlib, config-1 ``--fs`` at both
 moduli and ``--fs -R`` against the JAX golden file, and ``prove_fs`` /
 ``verify_fs`` at 2^14 at both moduli; and phased, checkpointed proving
 (``cli --phases`` / ``--ckpt``) at 2^14, resumed after each phase.  Last,
@@ -81,6 +81,14 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # int32 operations of one Threefry-2x32 block (20 rounds of add, rotate,
 # xor; 5 key injections of 3 adds), the least work per CRS entry
 THREEFRY_OPS = 20 * 3 + 5 * 3
+# int32 instructions of one SHA-256 stream block (csrc/sha_stream.cu) with
+# three-input logic (LOP3) and adds (IADD3) and one-instruction rotations
+# (SHF): 64 rounds of 14 (two 3-rotation sigmas and their xor, 4 each;
+# choose and majority, 1 each; 4 adds), 48 schedule steps of 10 (two sigmas
+# of 2 rotations, a shift and their xor; 2 adds), the 8 adds of H0; less
+# the 53 that fold where a word of the message (dom, the padding) or of the
+# state (H0) is a constant
+SHA_OPS = 64 * 14 + 48 * 10 + 8 - 53
 
 
 def log(msg: str) -> None:
@@ -568,11 +576,12 @@ def phase_polymul() -> dict:
 def _kernels():
     """Every kernel of the port, each mode of kernels 2-4 apart (small q,
     big q, the range mode of each, the table mode, and the batch mode at
-    each modulus)."""
+    each modulus), and the SHA-256 stream kernel."""
     from labrador_tpu_torch.ops import (ajtai_cuda, cd_cuda, polymul_cuda,
-                                        u1_cuda)
+                                        sha_cuda, u1_cuda)
     mods = (ajtai_cuda, u1_cuda, cd_cuda)
-    return ([polymul_cuda.KERNEL] + [m.KERNEL for m in mods]
+    return ([polymul_cuda.KERNEL, sha_cuda.KERNEL]
+            + [m.KERNEL for m in mods]
             + [m.KERNEL_BIG for m in mods] + [m.KERNEL_RANGE for m in mods]
             + [m.KERNEL_RANGE_BIG for m in mods]
             + [m.KERNEL_TABLE for m in mods]
@@ -1165,18 +1174,22 @@ def _host_ms(fn, reps: int = TIMED_RUNS) -> tuple[float, object]:
 SHA_PARTIAL_WORDS = 8 * 1000 + 3        # a partial final block
 
 
-def phase_sha_stream() -> None:
-    """The device route of the SHA-256 streams (``sha_prng.stream_device``,
-    a batched compress in torch ops) held equal to hashlib on the card at
-    the 2^14 JL size (16 keys, 256 x 1024 words each: 524,288 blocks) and
-    at a partial final block; then, host clock after sync, the device and
-    the host route at the JL size, one 2^14 FS JL attempt (``sample_jl``
-    on a ShaKey: 16 splits, the stream, the ternary map) and the pi
-    absorb (``hash_arrays`` of the attempt's 4,194,304 int8 entries)."""
+def phase_sha_stream() -> dict:
+    """The SHA-256 stream kernel (``csrc/sha_stream.cu``, which
+    ``sha_prng.stream_device`` launches on the card) held equal to hashlib
+    at the 2^14 JL size (16 keys, 256 x 1024 words each: 524,288 blocks)
+    and at a partial final block, one launch a call; its time (CUDA
+    events, one launch) beside its bound and its plain version's
+    (``stream_plain``, ``sha256_batch`` in torch ops on the card); then,
+    host clock after sync, the device and the host route at the JL size,
+    one 2^14 FS JL attempt (``sample_jl`` on a ShaKey: 16 splits, the
+    stream, the ternary map) and the pi absorb (``hash_arrays`` of the
+    attempt's 4,194,304 int8 entries).  Returns the kernel's stats for the
+    kernels line."""
     import hashlib
 
     from labrador_tpu_torch import keys, prover
-    from labrador_tpu_torch.ops import sha256, sha_prng
+    from labrador_tpu_torch.ops import sha256, sha_cuda, sha_prng
     from labrador_tpu_torch.params import LabradorParams
 
     p = LabradorParams(n=REAL["n"], r=REAL["r"], kappa_override=REAL["kappa"])
@@ -1188,22 +1201,46 @@ def phase_sha_stream() -> None:
         t0 = time.perf_counter()
         want = sha_prng.stream_host(kk, n).astype(np.int64)
         host_s[label] = time.perf_counter() - t0
+        launches = sha_cuda.KERNEL.launches
         got = sha_prng.stream_device(kk, n, "cuda").cpu().numpy()
+        if sha_cuda.KERNEL.launches != launches + 1:
+            raise AssertionError(f"SHA-256 stream, {label}: "
+                                 f"{sha_cuda.KERNEL.launches - launches} "
+                                 f"kernel launches, not 1")
         if got.shape != want.shape or not np.array_equal(got, want):
-            raise AssertionError(f"SHA-256 stream, {label}: device route != "
+            raise AssertionError(f"SHA-256 stream, {label}: kernel != "
                                  f"hashlib")
-        log(f"sha stream {label}: {len(kk)} keys x {n} words, device route "
-            f"== hashlib (bit-equal)")
+        log(f"sha stream {label}: {len(kk)} keys x {n} words, kernel == "
+            f"hashlib (bit-equal, one launch)")
+    blocks = p.r * n_jl // 8
+    plain = sha_prng.stream_plain(ks, n_jl, "cuda")
+    if not torch.equal(plain, sha_prng.stream_device(ks, n_jl, "cuda")):
+        raise AssertionError("SHA-256 stream, 2^14 JL: kernel != plain")
+    kw = torch.tensor([sha256.digest_words(k) for k in ks],
+                      dtype=torch.int64, device="cuda")
+    kernel_ms = cuda_ms(lambda: sha_cuda.sha_stream(kw, blocks // p.r,
+                                                    sha_prng.DOM_BITS), 20)
+    plain_ms = cuda_ms(lambda: sha_prng.stream_plain(ks, n_jl, "cuda"), 3)
+    work = Work(nbytes=blocks * 8 * 8 + p.r * 8 * 8,
+                int32_ops=blocks * SHA_OPS, macs=0, limb_products=1)
+    bound_ms, bound_by = work.bound()
+    log(f"kernel sha_stream       2^14 JL       ({p.r}, {n_jl}) bit-equal "
+        f"(tolerance 0)  kernel {kernel_ms:.4f} ms  plain {plain_ms:.4f} ms"
+        f"  bound {bound_ms:.4f} ms ({bound_by}: {SHA_OPS} int32 instructions"
+        f" a block, {blocks} blocks); at {bound_ms / kernel_ms:.1%} of the "
+        f"bound (CUDA events)")
     dev_ms, _ = _host_ms(lambda: sha_prng.stream_device(ks, n_jl, "cuda"))
     jl_ms, pi = _host_ms(lambda: prover.sample_jl(keys.ShaKey(ks[0]), p,
                                                   "cuda"))
     absorb_ms, _ = _host_ms(lambda: sha256.hash_arrays(ks[0], pi, domain=3))
-    blocks = p.r * n_jl // 8
-    log(f"sha stream 2^14 JL ({blocks} blocks): device route {dev_ms:.2f} "
+    log(f"sha stream 2^14 JL ({blocks} blocks): kernel route {dev_ms:.2f} "
         f"ms, hashlib {host_s['2^14 JL'] * 1e3:.2f} ms (one run); one FS JL "
         f"attempt (sample_jl) {jl_ms:.2f} ms; pi absorb ({pi.numel()} "
         f"int8 entries, copy to host and hashlib) {absorb_ms:.2f} ms "
         f"(medians of {TIMED_RUNS}, host clock after sync)")
+    # no single PyTorch call hashes a batch: library_ms stays null
+    return {"max_abs_err": 0, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def _add_counts(total: dict, counts: dict) -> dict:
@@ -1280,6 +1317,12 @@ def phase_fs_real(big_q: bool) -> dict:
             _require_big_only(counts, f"{tag} {where}")
         else:
             _require_launched(counts, COMMITMENT_KERNELS, f"{tag} {where}")
+        _require_launched(counts, ("sha_stream",), f"{tag} {where}")
+    # one JL attempt: the prover's stream, and the verifier's re-derivation
+    for counts, where in ((in_prove, "prove_fs"), (in_verify, "verify_fs")):
+        if counts["sha_stream"] != 1:
+            raise AssertionError(f"{tag} {where}: {counts['sha_stream']} "
+                                 f"stream kernel launches, not 1")
     fs_ms, inter_ms = [], []
     for _ in range(TIMED_RUNS):
         fs_ms.append(_host_ms(lambda: prover.prove_fs(
@@ -2329,7 +2372,7 @@ def main() -> int:
     _add_counts(launches, {k: v for k, v in
                            phase_bigq_recursion_real(stats).items()
                            if k in BIG_KERNELS})
-    phase_sha_stream()
+    stats["sha_stream"] = phase_sha_stream()
     phase_fs_config1()
     _add_counts(launches, phase_fs_real(big_q=False))
     _add_counts(launches, phase_fs_real(big_q=True))

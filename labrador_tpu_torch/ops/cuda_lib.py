@@ -54,6 +54,7 @@ _SIGNATURES = {
                             _I64, _I, _U32, _U32, _U64, _P),
     "polymul_bhat_launch": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I,
                             _P),
+    "sha_stream_launch": (_P, _P, _I, _I64, _U32, _P),
     "cuda_error_string": (_I,),
 }
 

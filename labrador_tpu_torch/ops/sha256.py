@@ -11,8 +11,9 @@ Two routes compute it:
   tensor to the host once and widens it to words one chunk at a time;
 * on any device, ``sha256_batch``: many independent messages of one
   length at once, each compress step a few torch ops over the batch (the
-  long key streams of ``sha_prng``).  uint32 words are carried in int64
-  tensors and masked, as in ``ops/prg.py``.
+  plain route of ``sha_prng``'s long key streams, which a CUDA device
+  hashes with the stream kernel, ``ops/sha_cuda``).  uint32 words are
+  carried in int64 tensors and masked, as in ``ops/prg.py``.
 
 Digests are 32-byte ``bytes``; ``digest_words`` gives their 8 words.
 """

@@ -13,9 +13,11 @@ Only 32-bit draws exist here: every sampler of the protocol takes them.
 
 Key derivations and short streams run on the host (``hashlib``).  A
 stream of DEVICE_STREAM_BLOCKS blocks or more (the JL matrices) runs on
-the caller's device as a batch of one-block messages (``sha256_batch``),
-STREAM_CHUNK_BLOCKS blocks at a time.  The route depends on the length
-alone; both give the same words.
+the caller's device as a batch of one-block messages: on a CUDA device in
+one launch of the stream kernel (``ops/sha_cuda``), elsewhere through
+``stream_plain`` (``sha256_batch``, STREAM_CHUNK_BLOCKS blocks at a time).
+The route depends on the length and the device alone; every route gives
+the same words.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import math
 import numpy as np
 import torch
 
+from . import sha_cuda
 from .sha256 import digest_words, sha256_batch, words_bytes
 
 DOM_BITS = 0x42495453   # "BITS"
@@ -33,13 +36,14 @@ DOM_FOLD = 0x464F4C44   # "FOLD"
 DOM_SPLT = 0x53504C54   # "SPLT"
 
 # streams at least this long (in 8-word blocks, over all keys of a call)
-# go to the device route: about the break-even on an H100 host, where
-# the device route's ~3,000 launches take 29 ms whatever the batch and
-# hashlib 0.92 us a block (PERF.md §6)
+# go to the device route.  The value is the plain route's break-even on an
+# H100 host, whose ~3,000 torch ops a chunk take about 29 ms whatever the
+# batch, against hashlib's 0.92 us a block (PERF.md §6).  On a CUDA device
+# the stream kernel takes one launch, so its break-even lies lower; the
+# short draws stay on the host until that is measured.
 DEVICE_STREAM_BLOCKS = 1 << 15
-# blocks per batched compress on the device route: 8 state and 16
-# schedule words of int64 a block, 96 MiB of live tensors and their
-# temporaries
+# blocks per batched compress on the plain route: 8 state and 16 schedule
+# words of int64 a block, 96 MiB of live tensors and their temporaries
 STREAM_CHUNK_BLOCKS = 1 << 19
 
 
@@ -72,8 +76,22 @@ def stream_host(keys: list[bytes], n_words: int) -> np.ndarray:
 def stream_device(keys: list[bytes], n_words: int,
                   device) -> torch.Tensor:
     """(len(keys), n_words) stream words as int64 on ``device``: each block
-    one 10-word message K ‖ "BITS" ‖ j, hashed in batches of
-    STREAM_CHUNK_BLOCKS over the flat (key, block) index."""
+    one 10-word message K ‖ "BITS" ‖ j.  On a CUDA device every block of
+    every key is hashed in one launch of the stream kernel; on any other
+    device by ``stream_plain``."""
+    if torch.device(device).type != "cuda":
+        return stream_plain(keys, n_words, device)
+    nb = max(1, math.ceil(n_words / 8))
+    kw = torch.tensor([digest_words(k) for k in keys], dtype=torch.int64,
+                      device=device)                           # (R, 8)
+    return sha_cuda.sha_stream(kw, nb, DOM_BITS)[:, :n_words]
+
+
+def stream_plain(keys: list[bytes], n_words: int,
+                 device) -> torch.Tensor:
+    """``stream_device``'s words by ``sha256_batch`` in torch ops on any
+    device, in batches of STREAM_CHUNK_BLOCKS over the flat (key, block)
+    index: the stream kernel's plain version."""
     nb = max(1, math.ceil(n_words / 8))
     total = len(keys) * nb
     kw = torch.tensor([digest_words(k) for k in keys], dtype=torch.int64,

@@ -14,30 +14,41 @@
   tampered copies; the port's versions of tests/test_fiat_shamir.py.
 * The big-q ``fs_jl_norm`` wrap forgery, and ``load_transcript`` of files
   the JAX package wrote.
+* The stream kernel (``csrc/sha_stream.cu``): its constants against
+  ``ops/sha256``'s, and the CPU route of ``stream_device`` that never
+  reaches it.  On a CUDA machine, the kernel against hashlib; a machine
+  without JAX runs those tests alone:
+  ``python -m pytest tests/test_torch_fs.py -m cuda --noconftest``.
 """
 
 import hashlib
+import re
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from labrador_tpu import prover as jprover
-from labrador_tpu import sampling as jsampling
-from labrador_tpu import structs as jstructs
-from labrador_tpu import verifier as jverifier
-from labrador_tpu.crs import CRS as JCRS
-from labrador_tpu.ops import sha256 as jsha
-from labrador_tpu.ops import zq as jzq
-from labrador_tpu.ops.sha_prng import wrap_digest
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from labrador_tpu import prover as jprover
+    from labrador_tpu import sampling as jsampling
+    from labrador_tpu import structs as jstructs
+    from labrador_tpu import verifier as jverifier
+    from labrador_tpu.crs import CRS as JCRS
+    from labrador_tpu.ops import sha256 as jsha
+    from labrador_tpu.ops import zq as jzq
+    from labrador_tpu.ops.sha_prng import wrap_digest
+except ImportError:     # a card machine: only the `cuda` tests run there
+    pass
 from labrador_tpu.params import LabradorParams
 
 from labrador_tpu_torch import keys, prover, sampling, structs, verifier
 from labrador_tpu_torch.cli import CRS_SEED_MULT, run_flow
-from labrador_tpu_torch.ops import sha256, sha_prng
+from labrador_tpu_torch.ops import cuda_lib, sha256, sha_cuda, sha_prng
 from labrador_tpu_torch.ops.modmath import sum_sq_u64
+from labrador_tpu_torch.params import LabradorParams as TParams
 
 SEED = 42
 P = LabradorParams(n=2, r=2)
@@ -150,7 +161,8 @@ def test_hash_arrays_chunks(monkeypatch):
 # The SHA-256 streams and ShaKey
 # ---------------------------------------------------------------------------
 
-KEYS3 = [hashlib.sha256(bytes([i])).digest() for i in range(3)]
+KEYS16 = [hashlib.sha256(bytes([i])).digest() for i in range(16)]
+KEYS3 = KEYS16[:3]
 
 
 @pytest.mark.parametrize("n_words", [1, 7, 8, 9, 15, 16, 17, 64, 1001])
@@ -182,6 +194,80 @@ def test_random_bits_route_by_length(monkeypatch):
     shorter = sha_prng.random_bits(KEYS3[:1], 17, "cpu")    # 3 blocks
     assert calls == ["device", "host"]
     np.testing.assert_array_equal(short[0].numpy(), shorter[0].numpy())
+
+
+def test_stream_kernel_constants_match():
+    """The round constants and H0 written in csrc/sha_stream.cu equal
+    ops/sha256's K and H0: the kernel cannot run here, so its source is
+    read."""
+    src = (cuda_lib.CSRC / "sha_stream.cu").read_text()
+
+    def table(name: str) -> tuple[int, ...]:
+        body = re.search(name + r"\[\d+\] = \{([^}]*)\}", src)[1]
+        return tuple(int(h, 16) for h in re.findall(r"0x([0-9a-f]{8})", body))
+
+    assert table("SHA_K") == sha256.K
+    assert table("SHA_H0") == sha256.H0
+
+
+def test_stream_device_cpu_takes_plain_route(monkeypatch):
+    """On a CPU tensor stream_device hashes through sha256_batch, the
+    plain route, and never reaches the kernel library."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CUDA route was taken on the CPU")
+
+    monkeypatch.setattr(cuda_lib, "load", refuse)
+    monkeypatch.setattr(sha_cuda, "sha_stream", refuse)
+    calls = []
+    batch = sha_prng.sha256_batch
+    monkeypatch.setattr(sha_prng, "sha256_batch",
+                        lambda words: calls.append(1) or batch(words))
+    launches = sha_cuda.KERNEL.launches
+    got = sha_prng.stream_device(KEYS3, 17, "cpu")
+    assert calls and sha_cuda.KERNEL.launches == launches
+    np.testing.assert_array_equal(
+        got.numpy(), sha_prng.stream_host(KEYS3, 17).astype(np.int64))
+
+
+def _cuda_stream(ks: list, n_words: int) -> torch.Tensor:
+    """stream_device on the card, required to go through one launch of the
+    stream kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    launches = sha_cuda.KERNEL.launches
+    got = sha_prng.stream_device(ks, n_words, "cuda")
+    torch.cuda.synchronize()
+    assert sha_cuda.KERNEL.launches == launches + 1
+    return got.cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_words", [1, 7, 8, 9, 17, 1001])
+@pytest.mark.parametrize("n_keys", [1, 3, 16])
+def test_cuda_stream_matches_host(n_keys, n_words):
+    """The stream kernel == stream_host (hashlib) at partial and whole
+    final blocks, one key and several."""
+    ks = KEYS16[:n_keys]
+    np.testing.assert_array_equal(
+        _cuda_stream(ks, n_words).numpy(),
+        sha_prng.stream_host(ks, n_words).astype(np.int64))
+
+
+@pytest.mark.cuda
+def test_cuda_stream_jl_shape():
+    """At the 2^14 JL shape (16 keys x 256 x 1,024 words, 524,288 blocks)
+    the kernel == hashlib, and sample_jl_matrices on CUDA ShaKeys == the
+    CPU route's."""
+    n = 256 * 16 * 64
+    np.testing.assert_array_equal(
+        _cuda_stream(KEYS16, n).numpy(),
+        sha_prng.stream_host(KEYS16, n).astype(np.int64))
+    p = TParams(n=16, r=16)
+    ks = [keys.ShaKey(k) for k in KEYS16]
+    launches = sha_cuda.KERNEL.launches
+    got = sampling.sample_jl_matrices(ks, p, "cuda").cpu()
+    assert sha_cuda.KERNEL.launches == launches + 1
+    assert torch.equal(got, sampling.sample_jl_matrices(ks, p, "cpu"))
 
 
 def test_sha_key_derivations_match_jax():
