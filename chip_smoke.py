@@ -46,6 +46,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import statistics
@@ -714,6 +715,9 @@ def _check_folded(res, where: str) -> None:
     if not all(f.report.values()):
         failed = [k for k, v in f.report.items() if not v]
         raise AssertionError(f"{where}: folded verification failed: {failed}")
+    if not f.recursive_report["all"]:
+        raise AssertionError(f"{where}: verify_recursive rejected: "
+                             f"{f.recursive_report}")
 
 
 def phase_recursion_config1() -> None:
@@ -1021,11 +1025,11 @@ def phase_bigq_recursion_real(stats: dict) -> dict:
     kernels 2-4 in big-q mode held bit-equal to their plain versions at
     the folded instance's shapes on random operands at their bounds, their
     errors merged into ``stats``; and the fold with mu = 16, the size
-    record of the TPU rounds.  Returns the launches of the run, the kernels
-    line's counts of the big-q kernels."""
-    from labrador_tpu_torch import keys, prover, recursion, structs, verifier
-    from labrador_tpu_torch.cli import FOLDED_CRS_XOR, run_flow
-    from labrador_tpu_torch.crs import CRS
+    record of the TPU rounds, through ``prover.prove_recursive`` and
+    ``verifier.verify_recursive``.  Returns the launches of the run, the
+    kernels line's counts of the big-q kernels."""
+    from labrador_tpu_torch import prover, recursion, structs, verifier
+    from labrador_tpu_torch.cli import run_flow
 
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -1055,20 +1059,28 @@ def phase_bigq_recursion_real(stats: dict) -> dict:
     hold_kernels(p2, "2^14 -R' big-q", stats, plain_reps=1)
 
     # the fold of the TPU rounds' size record (PERF.md): mu = 16 witness
-    # vectors for the digit stream instead of the CLI's round(sqrt(.))
-    t0 = time.perf_counter()
-    p3, w3, s3, _ = recursion.fold(p, res.state, res.proof, res.crs, mu=16)
-    crs3 = CRS.create(p3, seed=42 ^ FOLDED_CRS_XOR)
-    proof3 = prover.prove(p3, w3, s3, crs3, keys.fold_in(res.verifier_key, 1),
-                          decomp_mode="exact")
-    rep3 = verifier.verify_report(p3, s3, proof3, crs3, decomp_mode="exact")
-    _sync()
-    if not all(rep3.values()):
+    # vectors for the digit stream instead of the CLI's round(sqrt(.)),
+    # through prove_recursive / verify_recursive (no base opening)
+    from labrador_tpu_torch.utils.profiling import PhaseTimer
+    timer = PhaseTimer("cuda")
+    e0 = dataclasses.replace(recursion.ALPHA_EXPANSION)
+    rp = prover.prove_recursive(p, res.witness, res.state, res.crs,
+                                res.verifier_key, mu=16, timer=timer,
+                                base=res.proof)
+    rep3 = verifier.verify_recursive(p, res.state, rp, res.crs, mu=16,
+                                     timer=timer)
+    e1 = recursion.ALPHA_EXPANSION
+    if not rep3["all"] or not all(rep3.values()):
         raise AssertionError(f"2^14 --big-q -R mu=16 failed: {rep3}")
-    log(f"2^14 --big-q -R mu=16: folded n'={p3.n} r'={p3.r}, all checks "
-        f"true; fs size {sizes[0]} B -> "
-        f"{structs.transcript_size_in_bytes(proof3, p3.q, fs=True)} B "
-        f"(fold + prove + verify {(time.perf_counter() - t0) * 1e3:.2f} ms)")
+    p3 = recursion.folded_params(recursion.make_layout(p, 16), 16,
+                                 rp.beta_new)
+    log(f"2^14 --big-q -R mu=16: folded n'={p3.n} r'={p3.r}, "
+        f"verify_recursive all true; fs size {sizes[0]} B -> "
+        f"{structs.transcript_size_in_bytes(rp.folded, p3.q, fs=True)} B "
+        f"folded, {rp.transcript_size_in_bytes(p.q, fs=True)} B recursive "
+        f"proof; alpha-contractions {e1.calls - e0.calls} calls, "
+        f"{e1.entries - e0.entries} base-CRS entries; sections (ms) "
+        + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in timer.phases.items()))
     return launches
 
 

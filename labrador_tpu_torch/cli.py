@@ -4,20 +4,23 @@
 Usage:
     python -m labrador_tpu_torch.cli [--verbose] [--device {cuda,cpu}]
                                      [--n N] [--r R] [--kappa K] [--seed S]
-                                     [--big-q] [-R] [--fs] [--phases]
-                                     [--ckpt PATH]
+                                     [--big-q] [-R] [--mu MU] [--fs]
+                                     [--phases] [--ckpt PATH]
 
 ``--device cuda`` (the default) runs the kernels and fails if no card is
 present; ``--device cpu`` runs their plain PyTorch versions.  ``--big-q``
 takes the 2^32-scale modulus q = 4294967311 (``q_start = 2^32 - 1``) with
-exact digits, as the JAX CLI does.  ``-R`` proves with exact digits, folds
-the proof into a recursive instance (``recursion.fold``) and proves and
-verifies that too.  ``--fs`` proves non-interactively (Fiat-Shamir) and
-verifies with ``verify_fs``; with ``-R`` the folded instance is then
-proved interactively, as in the JAX CLI.  ``--phases`` proves one phase
-at a time and prints each phase's time with ``--verbose``; ``--ckpt PATH``
-also saves each phase to PATH and resumes from it.  ``--fs`` takes
-precedence over both.  Same seeds give the same transcripts as the JAX
+exact digits, as the JAX CLI does.  ``-R`` proves with exact digits, then
+folds the proof into a recursive instance and proves it
+(``prover.prove_recursive``, at ``--mu`` digit-stream vectors, 0 for
+round(sqrt(garbage))) and checks the recursive proof without the base
+opening (``verifier.verify_recursive``); ``-R --mu 16 --big-q --n 16
+--r 16 --kappa 256`` is the benchmark's fold configuration.  ``--fs``
+proves non-interactively (Fiat-Shamir) and verifies with ``verify_fs``;
+with ``-R`` the folded instance is then proved interactively, as in the
+JAX CLI.  ``--phases`` proves one phase at a time and prints each phase's
+time with ``--verbose``; ``--ckpt PATH`` also saves each phase to PATH and
+resumes from it.  ``--fs`` takes precedence over both.  Same seeds give the same transcripts as the JAX
 package.
 """
 
@@ -32,29 +35,42 @@ import torch
 from . import keys, prover, recursion, sampling, structs, verifier
 from .crs import CRS
 from .params import LabradorParams
+# the JAX CLI's CRS seeds (``recursion.folded_crs``): FOLDED_CRS_XOR is
+# named here too, where the tests and stage_times.py read both
+from .recursion import CRS_SEED_MULT, FOLDED_CRS_XOR  # noqa: F401
 from .utils.profiling import PhaseTimer
-
-# the JAX CLI's CRS seed derivations from --seed (base, folded instance)
-CRS_SEED_MULT = 0x9E3779B97F4A7C15
-FOLDED_CRS_XOR = 0xF01D
 # --big-q: the modulus search start of the reference's commented
 # 2^32-scale configuration (constants.rs:196), q = 4294967311
 BIG_Q_START = (1 << 32) - 1
 
 @dataclass
 class FoldResult:
-    """The folded instance of ``-R``: its proof, report and step times."""
+    """The recursive proof of ``-R`` with ``verify_recursive``'s report,
+    the fold it was made of (the folded params, digit witness, state and
+    CRS), the prover's residual of the folded relation, and the step
+    times.  ``proof`` and ``report`` are the folded transcript and its
+    ``verify_report``."""
 
     params: LabradorParams
     witness: torch.Tensor
     state: recursion.FoldedState
     crs: CRS
-    proof: structs.Transcript
-    report: dict
     residual: int
     fold_s: float
     prove_s: float
     verify_s: float
+    recursive: structs.RecursiveProof
+    recursive_report: dict
+
+    @property
+    def proof(self) -> structs.Transcript:
+        return self.recursive.folded
+
+    @property
+    def report(self) -> dict:
+        return {k.split(".", 1)[1]: v
+                for k, v in self.recursive_report.items()
+                if k.startswith("folded.")}
 
 
 @dataclass
@@ -111,10 +127,10 @@ def make_instance(p: LabradorParams, seed: int, device="cuda"):
 def run_flow(n: int = 2, r: int = 2, kappa: int = 0, seed: int = 42,
              device="cuda", verbose: bool = False,
              recursion: bool = False, big_q: bool = False, fs: bool = False,
-             phases: bool = False, ckpt: str = "") -> FlowResult:
+             phases: bool = False, ckpt: str = "", mu: int = 0) -> FlowResult:
     """Witness, CRS, state, prove, verify_report — the CLI's flow; with
-    ``recursion`` (exact digits) also ``fold_flow`` on the proof; with
-    ``big_q`` at the 2^32-scale modulus.  ``fs``: ``prove_fs``, and the
+    ``recursion`` (exact digits) also ``fold_flow`` on the proof at
+    ``mu``; with ``big_q`` at the 2^32-scale modulus.  ``fs``: ``prove_fs``, and the
     report adds ``fs_challenge_report``'s checks (the verdict is
     ``verify_fs``'s); else ``phases`` or ``ckpt``: ``prove_checkpointed``
     with a PhaseTimer (and checkpoint path ``ckpt``)."""
@@ -156,33 +172,35 @@ def run_flow(n: int = 2, r: int = 2, kappa: int = 0, seed: int = 42,
     res = FlowResult(p, witness, state, crs, proof, report, ok, t1 - t0,
                      t2 - t1, kv, timer)
     if recursion and ok:
-        res.folded = fold_flow(res, seed)
+        res.folded = fold_flow(res, mu)
     return res
 
 
-def fold_flow(base: FlowResult, seed: int) -> FoldResult:
-    """``-R`` of the JAX CLI: fold the base proof, check the folded
-    relation, then prove and verify the folded instance with its own CRS
-    and the verifier key fold_in(kv, 1)."""
+def fold_flow(base: FlowResult, mu: int = 0) -> FoldResult:
+    """``-R`` of the JAX CLI: ``recursion.fold`` of the base proof, the
+    prover's check of the folded relation on its digit witness, then
+    ``prover.prove_recursive`` on that fold (the folded instance proved on
+    ``recursion.folded_crs``, the JAX CLI's seed ^ FOLDED_CRS_XOR, with
+    the verifier key fold_in(kv, 1)) and ``verifier.verify_recursive`` of
+    the recursive proof."""
     device = base.witness.device
-    _sync(device)
-    t0 = time.perf_counter()
-    p2, w2, s2, _ = recursion.fold(base.params, base.state, base.proof,
-                                   base.crs)
+    p, state, crs = base.params, base.state, base.crs
+    timer = PhaseTimer(device)
+    with timer.phase("fold"):
+        fold = recursion.fold(p, state, base.proof, crs, mu)
+    p2, w2, s2, _ = fold
     residual = recursion.folded_residual(s2, w2, p2)
-    _sync(device)
-    t1 = time.perf_counter()
-    crs2 = CRS.create(p2, seed=seed ^ FOLDED_CRS_XOR)
-    proof2 = prover.prove(p2, w2, s2, crs2, keys.fold_in(base.verifier_key, 1),
-                          decomp_mode="exact")
-    _sync(device)
-    t2 = time.perf_counter()
-    report2 = verifier.verify_report(p2, s2, proof2, crs2,
-                                     decomp_mode="exact")
-    _sync(device)
-    t3 = time.perf_counter()
-    return FoldResult(p2, w2, s2, crs2, proof2, report2, residual, t1 - t0,
-                      t2 - t1, t3 - t2)
+    rproof = prover.prove_recursive(p, base.witness, state, crs,
+                                    base.verifier_key, mu, timer=timer,
+                                    base=base.proof, fold=fold)
+    rreport = verifier.verify_recursive(p, state, rproof, crs, mu,
+                                        timer=timer)
+    ph = timer.phases
+    verify_s = sum(ph[k] for k in ("base_public", "fold_statement",
+                                   "folded_verify") if k in ph)
+    return FoldResult(p2, w2, s2, recursion.folded_crs(crs, p2), residual,
+                      ph["fold"], ph["folded_prove"], verify_s, rproof,
+                      rreport)
 
 
 def main(argv=None) -> int:
@@ -202,6 +220,9 @@ def main(argv=None) -> int:
     ap.add_argument("-R", "--recursion", action="store_true",
                     help="fold the proof into a recursive instance and "
                          "prove+verify that too")
+    ap.add_argument("--mu", type=int, default=0,
+                    help="-R: digit-stream vectors of the folded witness "
+                         "(0 = round(sqrt(garbage)))")
     ap.add_argument("--phases", action="store_true",
                     help="prove one phase at a time, with a per-phase "
                          "timer report")
@@ -213,7 +234,7 @@ def main(argv=None) -> int:
 
     res = run_flow(args.n, args.r, args.kappa, args.seed, args.device,
                    args.verbose, args.recursion, args.big_q, args.fs,
-                   args.phases, args.ckpt)
+                   args.phases, args.ckpt, args.mu)
     proof, p = res.proof, res.params
     if res.timer is not None and args.verbose:
         print("Per-phase prover timings:")
@@ -251,8 +272,8 @@ def _report_folded(res: FlowResult, verbose: bool) -> int:
     if not (bool(f.proof.jl_ok) and bool(f.proof.b_pp_ok)):
         print("Error: folded prover self-checks failed")
         return 1
-    if not f.report["all"]:
-        failed = [k for k, v in f.report.items() if not v]
+    if not f.recursive_report["all"]:
+        failed = [k for k, v in f.recursive_report.items() if not v]
         print(f"Error: recursive proof failed verification: {failed}")
         return 1
     if verbose:

@@ -18,8 +18,9 @@ SHA-256 PRNG impl (``ops/sha_prng.py``); ``split``, ``fold_in`` and
 ``bits`` dispatch on the key's type, so ``bernoulli``, ``permutation``
 and the samplers take either key and draw what ``jax.random`` draws.
 
-Key derivation runs on the host (a handful of blocks); ``bits`` runs on
-whatever device it is asked for.
+Key derivation runs on the host in numpy (a handful of blocks,
+``prg.threefry2x32_np``); ``bits`` runs on whatever device it is asked
+for, small host draws in numpy too.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from .ops import sha_prng
-from .ops.prg import M32, threefry2x32
+from .ops.prg import M32, threefry2x32, threefry2x32_np
 
 
 @dataclass(frozen=True)
@@ -59,10 +60,16 @@ def key(seed: int) -> Key:
     return Key((seed >> 32) & M32, seed & M32)
 
 
-def _words(ks: list) -> tuple[torch.Tensor, torch.Tensor]:
-    """The Threefry keys' words as (len(ks), 1) int64 tensors (host)."""
-    return tuple(torch.tensor([[getattr(k, f)] for k in ks],
-                              dtype=torch.int64) for f in ("k0", "k1"))
+# host draws of at most this many blocks run in numpy (the challenge
+# draws: 64 entries a key): below it a torch op's fixed cost is most of
+# the time, above it torch's threads win
+_NUMPY_BLOCKS = 1 << 14
+
+
+def _words(ks: list) -> tuple[np.ndarray, np.ndarray]:
+    """The Threefry keys' words as (len(ks), 1) uint32 arrays (host)."""
+    return tuple(np.array([[getattr(k, f)] for k in ks], dtype=np.uint32)
+                 for f in ("k0", "k1"))
 
 
 def split(k, num: int = 2) -> list:
@@ -78,8 +85,8 @@ def split_stack(ks: list, num: int = 2) -> list:
     if not ks or not all(isinstance(k, Key) for k in ks):
         return [split(k, num) for k in ks]
     k0, k1 = _words(ks)
-    idx = torch.arange(num, dtype=torch.int64)
-    x0, x1 = threefry2x32(k0, k1, idx >> 32, idx & M32)
+    idx = np.arange(num, dtype=np.uint64)
+    x0, x1 = threefry2x32_np(k0, k1, idx >> 32, idx & M32)
     return [[Key(a, b) for a, b in zip(r0, r1)]
             for r0, r1 in zip(x0.tolist(), x1.tolist())]
 
@@ -97,8 +104,7 @@ def fold_in_stack(ks: list, data: int) -> list:
     if not ks or not all(isinstance(k, Key) for k in ks):
         return [fold_in(k, data) for k in ks]
     k0, k1 = _words(ks)
-    x0, x1 = threefry2x32(k0, k1, torch.zeros(1, dtype=torch.int64),
-                          torch.tensor([int(data) & M32]))
+    x0, x1 = threefry2x32_np(k0, k1, 0, int(data) & M32)
     return [Key(a, b) for a, b in zip(x0[:, 0].tolist(), x1[:, 0].tolist())]
 
 
@@ -115,6 +121,12 @@ def bits_stack(ks: list, shape, device="cuda") -> torch.Tensor:
     if all(isinstance(k, ShaKey) for k in ks):
         words = sha_prng.random_bits([k.digest for k in ks], n, device)
         return words.reshape((len(ks),) + shape)
+    if torch.device(device).type == "cpu" and len(ks) * n <= _NUMPY_BLOCKS:
+        k0, k1 = _words(ks)
+        idx = np.arange(n, dtype=np.uint64)
+        x0, x1 = threefry2x32_np(k0, k1, idx >> 32, idx & M32)
+        return torch.from_numpy((x0 ^ x1).astype(np.int64)).reshape(
+            (len(ks),) + shape)
     if len(ks) == 1:
         k0, k1 = ks[0].k0, ks[0].k1
     else:

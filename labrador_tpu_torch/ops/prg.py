@@ -8,6 +8,7 @@ The CUDA kernels run the same block in registers (``csrc/threefry.cuh``).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -37,6 +38,28 @@ def threefry2x32(k0, k1, c0: torch.Tensor, c1: torch.Tensor):
             x1.bitwise_xor_(x0)
         x0.add_(a).bitwise_and_(M32)
         x1.add_(b + step + 1).bitwise_and_(M32)
+    return x0, x1
+
+
+def threefry2x32_np(k0, k1, c0, c1) -> tuple[np.ndarray, np.ndarray]:
+    """``threefry2x32`` on the host in numpy uint32 words, which wrap mod
+    2**32 by themselves: the same bits as uint32 arrays, without a torch
+    operation a round (the keys' derivations and the challenge draws are
+    a few blocks each, so a torch op's fixed cost is all of their time).
+    Keys and counters: Python ints or integer arrays of uint32 words."""
+    k0, k1, c0, c1 = (np.asarray(x).astype(np.uint32) for x in
+                      (k0, k1, c0, c1))
+    with np.errstate(over="ignore"):
+        ks2 = k0 ^ k1 ^ np.uint32(_PARITY)
+        x0, x1 = (x.copy() for x in np.broadcast_arrays(c0 + k0, c1 + k1))
+        inject = ((k1, ks2), (ks2, k0), (k0, k1), (k1, ks2), (ks2, k0))
+        for step, (a, b) in enumerate(inject):
+            for r in (_ROT_A if step % 2 == 0 else _ROT_B):
+                x0 += x1
+                x1 = (x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))
+                x1 ^= x0
+            x0 += a
+            x1 += b + np.uint32(step + 1)
     return x0, x1
 
 

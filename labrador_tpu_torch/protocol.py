@@ -33,6 +33,7 @@ from .ops.u1_cuda import u1_bterm
 from .parallel.collectives import (CollectiveStats, all_gather_cat,
                                    all_reduce_sum)
 from .params import LabradorParams, _ceil_log
+from .utils.profiling import section
 
 
 class AxisCtx(NamedTuple):
@@ -170,13 +171,15 @@ def b_final(alpha_hat, beta_hat, b_hat, b_pp_hat, plan):
     return ntt_ops.ntt_inv_modq(ntt_ops.eval_add(t1, t2, plan), plan)
 
 
-def canonical_aggregates(params: LabradorParams, state, proof):
+def canonical_aggregates(params: LabradorParams, state, proof, timer=None):
     """Verifier lines 3-7 (verification.rs:38-148): the canonical a_ij
     (r, r, d), phi_i (r, n, d) and b (d,) of the aggregated relation, from
     the transcript and a dense ``structs.State`` or a structured
-    ``recursion.FoldedState``, whose alpha-contractions stream from its
-    base CRS.  Each level is reduced mod q before the next multiplication
-    (the CRT-range invariant)."""
+    ``recursion.FoldedState``, whose alpha-contraction streams from its
+    base CRS (timed as the section ``alpha_contract`` of ``timer``, a
+    ``utils.profiling.PhaseTimer``, where one is given).  Each level is
+    reduced mod q before the next multiplication (the CRT-range
+    invariant)."""
     p = params
     plan = ntt_ops.plan_for(p)
     a_pp = aggregate_a_pp(state.a_prime_k[:p.l_count], proof.psi, p.q)
@@ -192,7 +195,9 @@ def canonical_aggregates(params: LabradorParams, state, proof):
         a_fin = zq.add(state.a_alpha_modq(proof.alpha), a_beta, p.q)
         phi_beta = ntt_ops.ntt_inv_modq(
             phi_weighted_hat(beta_hat, phi_pp_hat, plan), plan)
-        phi_fin = zq.add(state.phi_alpha_modq(proof.alpha), phi_beta, p.q)
+        with section(timer, "alpha_contract"):
+            phi_alpha = state.phi_alpha_modq(proof.alpha)
+        phi_fin = zq.add(phi_alpha, phi_beta, p.q)
     else:
         a_fin = ntt_ops.ntt_inv_modq(a_final_hat(
             alpha_hat, beta_hat, ntt_ops.ntt_fwd(state.a_k, plan), a_pp_hat,

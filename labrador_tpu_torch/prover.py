@@ -1,7 +1,8 @@
 """The LaBRADOR prover, interactive and Fiat-Shamir, at small and big q.
 
 Counterpart of ``labrador_tpu/prover.py`` (``prove_phase1/2a/2b/3``,
-``prove_impl``, ``prove``, ``prove_fs``, ``prove_checkpointed``).  PyTorch
+``prove_impl``, ``prove``, ``prove_fs``, ``prove_checkpointed``) and
+one level of recursion, ``prove_recursive``.  PyTorch
 runs eagerly, so the phases are plain functions and the JAX
 ``while_loop``s are bounded Python loops.  The relation is a dense
 ``structs.State`` or a ``recursion.FoldedState``.  Every tensor lives on
@@ -20,7 +21,7 @@ import math
 
 import torch
 
-from . import protocol, sampling
+from . import protocol, recursion, sampling
 from .crs import CRSBatch
 from .keys import Key, fold_in, split
 from .ops import ntt as ntt_ops
@@ -29,7 +30,9 @@ from .ops.modmath import mod_pos, mulmod, sum_sq_u64, to_signed_i32
 from .oracle import (DOM_BPP, DOM_JL, DOM_U1, DOM_U2, FiatShamirOracle,
                      InteractiveOracle, batch_oracles, batch_size)
 from .params import LabradorParams
-from .structs import State, Transcript, gram_hat, stack, take
+from .structs import (RecursiveProof, State, Transcript, gram_hat, stack,
+                      take, without_opening)
+from .utils.profiling import section as _section
 
 # Verifier-randomness derivation tags (protocol message order)
 TAG_JL = 0
@@ -200,6 +203,16 @@ def prove_phase2b(params: LabradorParams, witness: torch.Tensor,
     return ost, {**out, "u_2": protocol.u2_from_digits(crs, h_dig, p, ctx)}
 
 
+def folded_phi_alpha(state, alpha: torch.Tensor) -> torch.Tensor:
+    """sum_k alpha_k phi_k of a structured recursion state
+    (``recursion.FoldedState``) in the prover's second aggregation: the
+    k'-sized alpha-contraction streams from the base CRS; no dense phi
+    exists.  A function of the prover's own, so that its time is told
+    apart from the verifier's same contraction (which
+    ``verify_report(timer=)`` times as ``alpha_contract``)."""
+    return state.phi_alpha_modq(alpha)
+
+
 def _aggregate_h(params: LabradorParams, witness: torch.Tensor, state: State,
                  oracle, ost, g: torch.Tensor, ph2a: dict):
     """Steps 5-7 of one instance: both aggregations and h (no CRS)."""
@@ -236,11 +249,9 @@ def _aggregate_h(params: LabradorParams, witness: torch.Tensor, state: State,
     alpha_hat = ntt_ops.ntt_fwd(alpha, plan)
     beta_hat = ntt_ops.ntt_fwd(beta, plan)
     if hasattr(state, "phi_alpha_modq"):
-        # structured recursion state (recursion.FoldedState): the k'-sized
-        # alpha-contraction streams from the base CRS; no dense phi exists
         pp_term = ntt_ops.ntt_inv_modq(
             protocol.phi_weighted_hat(beta_hat, phi_pp_hat, plan), plan)
-        phi_fin = zq.add(state.phi_alpha_modq(alpha), pp_term, p.q)
+        phi_fin = zq.add(folded_phi_alpha(state, alpha), pp_term, p.q)
     else:
         phi_hat = ntt_ops.ntt_fwd(state.phi_k, plan)
         phi_fin = ntt_ops.ntt_inv_modq(
@@ -320,6 +331,38 @@ def prove_fs(params: LabradorParams, witness: torch.Tensor, state: State,
     return prove_impl(params, witness, state, crs,
                       FiatShamirOracle.create(crs.key, state, params),
                       decomp_mode, ctx)
+
+
+def prove_recursive(params: LabradorParams, witness: torch.Tensor,
+                    state: State, crs, verifier_key: Key, mu: int = 16,
+                    kappa_new: int = 16, timer=None,
+                    base: Transcript | None = None,
+                    fold=None) -> RecursiveProof:
+    """One level of recursive composition: the base proof (``prove`` with
+    exact digits), ``recursion.fold`` of it at ``mu`` digit-stream
+    vectors and commitment rank ``kappa_new``, then ``prove`` of the
+    folded instance on ``recursion.folded_crs(crs, ...)`` with the key
+    fold_in(verifier_key, 1).  ``base``: a base proof already made with
+    exact digits (the CLI's Fiat-Shamir or phased one), in place of the
+    first step; ``fold``: ``recursion.fold``'s (params', witness',
+    FoldedState, layout) of ``base`` already made, in place of the
+    second.  With ``timer`` (a ``utils.profiling.PhaseTimer``) the
+    sections ``base_prove``, ``fold`` and ``folded_prove`` are timed
+    between device syncs; without one nothing syncs.  ``mu`` 0 takes
+    ``recursion.make_layout``'s default."""
+    if base is None:
+        with _section(timer, "base_prove"):
+            base = prove(params, witness, state, crs, verifier_key,
+                         decomp_mode="exact")
+    if fold is None:
+        with _section(timer, "fold"):
+            fold = recursion.fold(params, state, base, crs, mu, kappa_new)
+    p2, w2, st2, _ = fold
+    with _section(timer, "folded_prove"):
+        folded = prove(p2, w2, st2, recursion.folded_crs(crs, p2),
+                       fold_in(verifier_key, 1), decomp_mode="exact")
+    return RecursiveProof(base=without_opening(base),
+                          beta_new=p2.beta_override, folded=folded)
 
 
 def _check_batch(crs_b, witness_b: torch.Tensor, n_oracles: int) -> int:

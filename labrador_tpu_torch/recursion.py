@@ -19,7 +19,11 @@ JAX module, whose docstring derives them:
 
 ``fold`` returns the structured relation (``FoldedState``), whose
 alpha-contractions stream the base CRS; ``recursive_step`` builds the dense
-relation (tests only, it grows with kappa x M).  Ring products of
+relation (tests only, it grows with kappa x M).  ``fold`` is two halves:
+``build_witness`` (the prover's, from the opening z, t, g, h) and
+``fold_statement`` (anyone's, from the transcript's other fields, the
+base CRS and the public beta'), which ``verifier.verify_recursive``
+runs alone.  Ring products of
 coefficient tensors go through ``ops.polymul_cuda.negacyclic_polymul``:
 the fused polymul kernel on the card at small q, the CRT transforms in
 torch ops at big q (the JAX package's XLA route there).
@@ -45,6 +49,44 @@ from .structs import State, Transcript, gram_hat
 # CRS entries expanded per streaming step of the alpha-contractions (4 Mi:
 # a step's evaluation-domain tile is P x 32 MiB of int64)
 _STEP_COEFFS = 1 << 22
+
+# The CLI's CRS seeds, the JAX CLI's (its golden files fix them): the
+# base instance's CRS from seed * CRS_SEED_MULT mod 2^64, the folded
+# instance's from seed ^ FOLDED_CRS_XOR.  Kept here alone: ``cli`` imports
+# them, and ``folded_crs`` reads the seed back from a base CRS's key.
+CRS_SEED_MULT = 0x9E3779B97F4A7C15
+FOLDED_CRS_XOR = 0xF01D
+
+
+@dataclass
+class ExpansionCount:
+    """Calls of the alpha-contractions (``_alpha_contract_a/_b/_cd``) and
+    the base-CRS entries they expanded, incremented where they expand (as
+    ``ops.cuda_lib.KernelInfo.launches`` counts a kernel's launches)."""
+
+    calls: int = 0
+    entries: int = 0
+
+    def add(self, tile: torch.Tensor) -> torch.Tensor:
+        self.entries += tile.numel()
+        return tile
+
+
+ALPHA_EXPANSION = ExpansionCount()
+
+
+def folded_crs(base_crs: CRS, params_new: LabradorParams) -> CRS:
+    """The folded instance's CRS, derived from the base CRS alone by the
+    CLI's convention: the base key is seed * CRS_SEED_MULT mod 2^64
+    (CRS_SEED_MULT is odd, so the seed is the key times its inverse), and
+    the folded CRS is made from seed ^ FOLDED_CRS_XOR.  That is the JAX
+    CLI's rule, which the golden ``-R`` files hold; for a base CRS made
+    by any other seed rule the result is still a fixed function of the
+    base key, the same for prover and verifier, but its seed means
+    nothing."""
+    base_seed = (int(base_crs.key[0]) << 32) | int(base_crs.key[1])
+    seed = base_seed * pow(CRS_SEED_MULT, -1, 1 << 64) % (1 << 64)
+    return CRS.create(params_new, seed=seed ^ FOLDED_CRS_XOR)
 
 
 def _exact_digits_lifted(x: torch.Tensor, base: int, ndig: int,
@@ -169,13 +211,24 @@ def _res_scale(res: torch.Tensor, const: int, plan) -> torch.Tensor:
                    plan.pv(res.device, res.ndim))
 
 
-def _folded_params(layout: RecursionLayout, witness: torch.Tensor,
-                   kappa_new: int) -> LabradorParams:
-    """The new instance's params; beta is sqrt(2) over the actual digit-
-    stream norm (headroom for the JL bound, see the JAX module)."""
+def witness_beta(witness: torch.Tensor, q: int) -> int:
+    """beta' of a digit witness: sqrt(2) over its actual norm (headroom
+    for the JL bound, see the JAX module), isqrt(2 ||w||^2) + 1."""
+    wc = zq.to_signed_small(witness, q)
+    return math.isqrt(2 * int(torch.sum(wc * wc))) + 1
+
+
+def beta_new_max(params: LabradorParams) -> int:
+    """The largest beta' that ``witness_beta`` gives when the base's check
+    14 holds: the digit stream is part of check 14's digits (g and h once
+    per i <= j), so ||w||^2 <= beta'^2 of the base."""
+    return math.isqrt(2 * int(params.beta_prime)) + 1
+
+
+def folded_params(layout: RecursionLayout, kappa_new: int,
+                  beta_new: int) -> LabradorParams:
+    """The new instance's params, with the norm bound beta_new."""
     p = layout.params
-    wc = zq.to_signed_small(witness, p.q)
-    beta_new = math.isqrt(2 * int(torch.sum(wc * wc))) + 1
     return LabradorParams(n=layout.n_new, r=layout.r_new, q=p.q, d=p.d,
                           k_count=layout.k_new, l_count=1,
                           kappa_override=kappa_new, exact_digits=True,
@@ -332,8 +385,9 @@ def recursive_step(params: LabradorParams, state: State, proof: Transcript,
     state_new = State(a_k=a_new, phi_k=phi_new, b_k=b_new,
                       a_prime_k=a_new, phi_prime_k=phi_new,
                       b_prime_k=b_new[:, 0])
-    return _folded_params(layout, witness, kappa_new), witness, state_new, \
-        layout
+    params_new = folded_params(layout, kappa_new,
+                               witness_beta(witness, params.q))
+    return params_new, witness, state_new, layout
 
 
 # ---------------------------------------------------------------------------
@@ -353,12 +407,14 @@ def _alpha_contract_a(crs: CRS, w_hat: torch.Tensor, p0: LabradorParams,
                       plan) -> torch.Tensor:
     """sum_rho w_rho * A[rho] -> (n, d) mod q, streaming A row tiles."""
     dev = w_hat.device
+    ALPHA_EXPANSION.calls += 1
     tile = max(1, _STEP_COEFFS // (p0.n * p0.d))
     acc = torch.zeros((plan.n_primes, p0.n, p0.d), dtype=torch.int64,
                       device=dev)
     for r0 in range(0, p0.kappa, tile):
         nrows = min(tile, p0.kappa - r0)
-        a_hat = ntt_ops.ntt_fwd(crs.a_rows_dyn(r0, nrows, device=dev), plan)
+        a_hat = ntt_ops.ntt_fwd(ALPHA_EXPANSION.add(
+            crs.a_rows_dyn(r0, nrows, device=dev)), plan)
         acc = ntt_ops.eval_add(acc, _contract_rows_hat(
             w_hat[:, r0:r0 + nrows], a_hat, plan), plan)
     return ntt_ops.ntt_inv_modq(acc, plan)
@@ -370,6 +426,7 @@ def _alpha_contract_b(crs: CRS, w_hat: torch.Tensor, p0: LabradorParams,
     (r, t_1, kappa, d) mod q, one B matrix (or column tile of one) per
     step."""
     dev = w_hat.device
+    ALPHA_EXPANSION.calls += 1
     m_total = p0.r * p0.t_1
     cols = max(1, min(p0.kappa, _STEP_COEFFS // (p0.kappa_1 * p0.d)))
     acc = torch.empty((plan.n_primes, m_total, p0.kappa, p0.d),
@@ -377,8 +434,8 @@ def _alpha_contract_b(crs: CRS, w_hat: torch.Tensor, p0: LabradorParams,
     for m in range(m_total):
         for c0 in range(0, p0.kappa, cols):
             nc = min(cols, p0.kappa - c0)
-            b_hat = ntt_ops.ntt_fwd(
-                crs.b_mat_dyn(m, col0=c0, ncols=nc, device=dev), plan)
+            b_hat = ntt_ops.ntt_fwd(ALPHA_EXPANSION.add(
+                crs.b_mat_dyn(m, col0=c0, ncols=nc, device=dev)), plan)
             acc[:, m, c0:c0 + nc] = _contract_rows_hat(w_hat, b_hat, plan)
     return ntt_ops.ntt_inv_modq(acc, plan).reshape(p0.r, p0.t_1, p0.kappa,
                                                    p0.d)
@@ -391,15 +448,16 @@ def _alpha_contract_cd(crs: CRS, base: int, w_hat: torch.Tensor, t_used: int,
     -> (n_tri, t_used, d) mod q, streaming triangle chunks."""
     p = p0
     dev = w_hat.device
+    ALPHA_EXPANSION.calls += 1
     n_tri = p.r * (p.r + 1) // 2
     col = p.kappa_2 * p.d
     chunk = max(1, _STEP_COEFFS // (t_used * col))
     parts = []
     for tri0 in range(0, n_tri, chunk):
         nt = min(chunk, n_tri - tri0)
-        grp = crs._expand_dyn(base, tri0, p.t_1 * col,
-                              (nt, t_used, p.kappa_2, p.d),
-                              (p.t_1 * col, col, p.d, 1), device=dev)
+        grp = ALPHA_EXPANSION.add(crs._expand_dyn(
+            base, tri0, p.t_1 * col, (nt, t_used, p.kappa_2, p.d),
+            (p.t_1 * col, col, p.d, 1), device=dev))
         mats_hat = ntt_ops.ntt_fwd(grp.reshape(nt * t_used, p.kappa_2, p.d),
                                    plan)                 # (P, m, k2, d)
         parts.append(ntt_ops.eval_matmul(mats_hat, w_hat[:, :, None, :],
@@ -533,17 +591,19 @@ class FoldedState:
         return out
 
 
-def fold(params: LabradorParams, state, proof: Transcript, crs: CRS,
-         mu: int = 0, kappa_new: int = 16):
-    """Fold a proof into a new instance without the dense relation.
-    Returns (params_new, witness_new, FoldedState, layout); ``state`` may
-    itself be a FoldedState (multi-level recursion)."""
+def fold_statement(params: LabradorParams, state, proof: Transcript,
+                   crs: CRS, mu: int, kappa_new: int, beta_new: int):
+    """The folded statement alone, as a verifier rebuilds it: (params_new,
+    FoldedState, layout).  Reads the transcript's public fields only (u_1,
+    u_2, c and those of the aggregations: pi, projection, psi, omega, b'',
+    alpha, beta), never the opening z, t, g, h; ``beta_new`` is the new
+    instance's norm bound, which the recursive proof carries.  ``state``
+    may itself be a FoldedState (multi-level recursion)."""
     p = params
     layout = make_layout(p, mu)
-    witness = build_witness(layout, proof)
     plan = ntt_ops.plan_for(p)
     q, d = p.q, p.d
-    dev = proof.z.device
+    dev = proof.u_1.device
 
     a_fin, phi_fin, b_fin = protocol.canonical_aggregates(p, state, proof)
     c = proof.c
@@ -578,7 +638,22 @@ def fold(params: LabradorParams, state, proof: Transcript, crs: CRS,
 
     st = FoldedState(base_crs=crs, c=c, cc=cc, cphi=cphi, a_fin=a_fin,
                      phi0=phi0, b_k=b_k, layout=layout)
-    return _folded_params(layout, witness, kappa_new), witness, st, layout
+    return folded_params(layout, kappa_new, beta_new), st, layout
+
+
+def fold(params: LabradorParams, state, proof: Transcript, crs: CRS,
+         mu: int = 0, kappa_new: int = 16):
+    """Fold a proof into a new instance without the dense relation:
+    ``build_witness`` of the opening, its beta' (``witness_beta``), then
+    ``fold_statement``.  Returns (params_new, witness_new, FoldedState,
+    layout); ``state`` may itself be a FoldedState (multi-level
+    recursion)."""
+    layout = make_layout(params, mu)
+    witness = build_witness(layout, proof)
+    params_new, st, layout = fold_statement(
+        params, state, proof, crs, mu, kappa_new,
+        witness_beta(witness, params.q))
+    return params_new, witness, st, layout
 
 
 def folded_residual(st: FoldedState, witness: torch.Tensor,

@@ -92,6 +92,17 @@ def take(batch, b=None, device=None):
 TRANSCRIPT_FIELDS = ("u_1", "u_2", "t", "g", "h", "z", "c", "projection",
                      "psi", "omega", "b_prime_prime", "alpha", "beta")
 
+# the amortized opening: what a recursive proof leaves out of its base
+# transcript (its digits are the folded instance's witness)
+OPENING_FIELDS = ("z", "t", "g", "h")
+
+
+def without_opening(tr: Transcript) -> Transcript:
+    """The transcript with z, t, g and h emptied (no rows, their dtype and
+    device kept)."""
+    return tr.replace(**{f: torch.empty_like(getattr(tr, f)[:0])
+                         for f in OPENING_FIELDS})
+
 
 def gram_hat(s_hat: torch.Tensor, plan) -> torch.Tensor:
     """G_ij = <s_i, s_j> in the eval domain: (P, r, n, d) -> (P, r, r, d)."""
@@ -206,20 +217,23 @@ def bincode_chunks(tr: Transcript, q: int, fs: bool = False):
     parts.append(_bincode_poly_vec(_np(tr.u_2)))
     if not fs:
         parts.append(_bincode_poly_vec(_np(tr.c)))
-    parts += [_bincode_poly_vec(_np(tr.z)), _bincode_poly_vec(_np(tr.t)),
-              _bincode_poly_vec(_np(tr.g)), _bincode_poly_vec(_np(tr.h))]
+    parts += [_bincode_poly_vec(_np(getattr(tr, f))) for f in OPENING_FIELDS]
     for part in parts:
         yield from part
+
+
+def _zlib9_size(chunks) -> int:
+    comp = zlib.compressobj(9)
+    total = 0
+    for blk in chunks:
+        total += len(comp.compress(blk))
+    return total + len(comp.flush())
 
 
 def transcript_size_in_bytes(tr: Transcript, q: int, fs: bool = False) -> int:
     """Compressed size of the bincode image (zlib level 9), matching
     ``Transcript::size_in_bytes`` (``structs.rs:212-221``)."""
-    comp = zlib.compressobj(9)
-    total = 0
-    for blk in bincode_chunks(tr, q, fs):
-        total += len(comp.compress(blk))
-    return total + len(comp.flush())
+    return _zlib9_size(bincode_chunks(tr, q, fs))
 
 
 def transcript_sha256(tr: Transcript, q: int, fs: bool = False) -> str:
@@ -237,6 +251,25 @@ _SAVE_DTYPES = {"pi": np.int8, "jl_ok": np.bool_, "b_pp_ok": np.bool_}
 _NOT_RESIDUES = ("pi", "c", "jl_ok", "b_pp_ok")
 
 
+def _transcript_arrays(tr: Transcript, q: int, prefix: str = "") -> dict:
+    """``save_transcript``'s members of one transcript, named with
+    ``prefix``."""
+    arrays = {}
+    for f in dataclasses.fields(tr):
+        v = _np(getattr(tr, f.name))
+        name = prefix + f.name
+        if zq.is_big(q) and f.name not in _NOT_RESIDUES:
+            arrays[name + "__hi"] = (v >> 16).astype(np.int32)
+            arrays[name + "__lo"] = (v & 0xFFFF).astype(np.int32)
+            continue
+        a = v.astype(_SAVE_DTYPES.get(f.name, np.int32))
+        if not np.array_equal(a, v):
+            raise ValueError(f"field {f.name} does not fit {a.dtype} at "
+                             f"q = {q}")
+        arrays[name] = a
+    return arrays
+
+
 def save_transcript(tr: Transcript, path: str, q: int) -> None:
     """Persist a transcript as ``np.savez_compressed``, one member per field
     in declaration order with the JAX package's dtypes.  At a big modulus
@@ -245,19 +278,26 @@ def save_transcript(tr: Transcript, path: str, q: int) -> None:
     ``<name>__lo`` (the low 16 bits), int32.  Raises if a single-member
     field does not fit its dtype (a big-q transcript saved with a small
     ``q``)."""
-    arrays = {}
-    for f in dataclasses.fields(tr):
-        v = _np(getattr(tr, f.name))
-        if zq.is_big(q) and f.name not in _NOT_RESIDUES:
-            arrays[f.name + "__hi"] = (v >> 16).astype(np.int32)
-            arrays[f.name + "__lo"] = (v & 0xFFFF).astype(np.int32)
+    np.savez_compressed(path, **_transcript_arrays(tr, q))
+
+
+def _transcript_from(z, device, prefix: str = "") -> Transcript:
+    """The transcript of the members named with ``prefix`` in an open
+    ``np.load`` archive."""
+    fields = {}
+    for k in z.files:
+        if not k.startswith(prefix) or k.endswith("__lo"):
             continue
-        a = v.astype(_SAVE_DTYPES.get(f.name, np.int32))
-        if not np.array_equal(a, v):
-            raise ValueError(f"field {f.name} does not fit {a.dtype} at "
-                             f"q = {q}")
-        arrays[f.name] = a
-    np.savez_compressed(path, **arrays)
+        if k.endswith("__hi"):
+            name = k[len(prefix):-len("__hi")]
+            a = (z[k].astype(np.int64) << 16) \
+                | z[k[:-len("__hi")] + "__lo"].astype(np.int64)
+        else:
+            name, a = k[len(prefix):], z[k]
+            if a.dtype not in (np.int8, np.bool_):
+                a = a.astype(np.int64)
+        fields[name] = torch.from_numpy(a).to(device)
+    return Transcript(**fields)
 
 
 def load_transcript(path: str, device="cuda") -> Transcript:
@@ -265,18 +305,49 @@ def load_transcript(path: str, device="cuda") -> Transcript:
     ``save_transcript`` wrote: a two-limb member pair ``<name>__hi`` /
     ``<name>__lo`` becomes one int64 residue (hi << 16) | lo; int8 and
     bool members keep their dtype, every other field becomes int64."""
-    fields = {}
     with np.load(path) as z:
-        for k in z.files:
-            if k.endswith("__lo"):
-                continue
-            if k.endswith("__hi"):
-                name = k[:-len("__hi")]
-                a = (z[k].astype(np.int64) << 16) \
-                    | z[name + "__lo"].astype(np.int64)
-            else:
-                name, a = k, z[k]
-                if a.dtype not in (np.int8, np.bool_):
-                    a = a.astype(np.int64)
-            fields[name] = torch.from_numpy(a).to(device)
-    return Transcript(**fields)
+        return _transcript_from(z, device)
+
+
+# ---------------------------------------------------------------------------
+# Recursive proofs (``prover.prove_recursive``)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class RecursiveProof:
+    """One level of recursion: the base transcript without its opening
+    (``without_opening``: z, t, g, h have no rows), the folded instance's
+    norm bound beta' (its witness is the opening's digits, which only the
+    prover holds) and the folded instance's transcript."""
+
+    base: Transcript
+    beta_new: int
+    folded: Transcript
+
+    def bincode_chunks(self, q: int, fs: bool = False):
+        """The base transcript's bincode (its opening four empty
+        vectors), beta' as a u64 (little endian), then the folded
+        transcript's bincode; ``fs=True`` drops from both the fields a
+        Fiat-Shamir verifier re-derives."""
+        yield from bincode_chunks(self.base, q, fs)
+        yield int(self.beta_new).to_bytes(8, "little")
+        yield from bincode_chunks(self.folded, q, fs)
+
+    def transcript_size_in_bytes(self, q: int, fs: bool = False) -> int:
+        """Compressed size of the bincode image (zlib level 9)."""
+        return _zlib9_size(self.bincode_chunks(q, fs))
+
+    def save(self, path: str, q: int) -> None:
+        """``np.savez_compressed`` with the members of ``save_transcript``
+        named ``base.<field>`` and ``folded.<field>``, and ``beta_new``."""
+        np.savez_compressed(path, beta_new=np.asarray(self.beta_new,
+                                                      np.int64),
+                            **_transcript_arrays(self.base, q, "base."),
+                            **_transcript_arrays(self.folded, q, "folded."))
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "RecursiveProof":
+        with np.load(path) as z:
+            return cls(base=_transcript_from(z, device, "base."),
+                       beta_new=int(z["beta_new"]),
+                       folded=_transcript_from(z, device, "folded."))

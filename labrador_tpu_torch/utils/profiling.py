@@ -43,3 +43,10 @@ class PhaseTimer:
                                     key=lambda kv: -kv[1])]
         lines.append(f"total: {total * 1e3:.2f} ms")
         return "\n".join(lines)
+
+
+def section(timer: PhaseTimer | None, name: str):
+    """``timer.phase(name)`` (device syncs around the section) where a
+    timer is given, else nothing."""
+    return timer.phase(name) if timer is not None \
+        else contextlib.nullcontext()

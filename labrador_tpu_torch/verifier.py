@@ -4,7 +4,8 @@ Fiat-Shamir challenges.
 Counterpart of ``labrador_tpu/verifier.py`` (``check14_norm_bound``,
 ``verify_report``, ``verify``, ``fs_challenge_report``, ``verify_fs``),
 with the same report keys, for a dense ``structs.State`` or (interactive
-only) a ``recursion.FoldedState``.  Checks 15, 19 and 20
+only) a ``recursion.FoldedState``; ``verify_recursive`` checks a
+``structs.RecursiveProof`` without its base opening.  Checks 15, 19 and 20
 re-expand the CRS through the commitment kernels (CUDA tensors) or their
 plain versions (CPU tensors), sharded over a mesh's rows group when
 ``verify_report`` is given a ``protocol.AxisCtx``.  ``verify_report_batch``
@@ -14,13 +15,12 @@ the batch.
 
 from __future__ import annotations
 
-import contextlib
 import math
 
 import numpy as np
 import torch
 
-from . import protocol, sampling
+from . import protocol, recursion, sampling
 from .crs import CRSBatch
 from .keys import fold_in
 from .ops import ntt as ntt_ops
@@ -30,7 +30,8 @@ from .oracle import DOM_BPP, DOM_JL, DOM_U1, DOM_U2, FiatShamirOracle
 from .params import LabradorParams
 from .prover import (JL_MAX_ATTEMPTS, TAG_ALPHA, TAG_BETA, TAG_CHALLENGE,
                      TAG_JL, TAG_OMEGA, TAG_PSI, sample_jl)
-from .structs import State, Transcript, take
+from .structs import RecursiveProof, State, Transcript, take
+from .utils.profiling import section as _section
 
 
 # XLA on the CPU splits a float32 sum over a dimension longer than 32
@@ -102,11 +103,25 @@ def check14_norm_bound(p: LabradorParams, z, z_dig, t_dig, g_dig, h_dig,
     raise ValueError(f"unknown norm_mode {norm_mode!r}")
 
 
-def _section(timer, name: str):
-    """``timer.phase(name)`` (a ``utils.profiling.PhaseTimer``: device
-    syncs around the section) where a timer is given, else nothing."""
-    return timer.phase(name) if timer is not None \
-        else contextlib.nullcontext()
+def b_pp_const_ok(p: LabradorParams, state, proof: Transcript) -> bool:
+    """The b'' constant-term consistency (verification.rs:532-551): no
+    field of the opening."""
+    expected = protocol.b_pp_expected_const(
+        proof.omega, proof.psi, proof.projection,
+        state.b_prime_k[:p.l_count], p.q)
+    return zq.all_eq(proof.b_prime_prime[:, 0], expected)
+
+
+def projection_norm_ok(p: LabradorParams, projection: torch.Tensor) -> bool:
+    """The projection's norm bound (verification.rs:568-579) on the
+    centred int32 word of each entry, as the JAX package: every entry
+    within sqrt(128)*beta first, so the 256-term sum of squares cannot
+    wrap 2^64 and land under the bound."""
+    centered = to_signed_i32(zq.to_signed_small(projection, p.q))
+    bound = 128 * p.beta_bound * p.beta_bound
+    entry_max = min(math.isqrt(bound), 2**31 - 1)
+    return bool(torch.all(_abs_i32(centered) <= entry_max)) \
+        and sum_sq_u64(centered) <= bound
 
 
 def _local_checks(p: LabradorParams, state: State, proof: Transcript,
@@ -122,7 +137,8 @@ def _local_checks(p: LabradorParams, state: State, proof: Transcript,
 
     # ---- lines 3-7: recomputation (verification.rs:38-148)
     with _section(timer, "aggregates"):
-        a_fin, phi_fin, b = protocol.canonical_aggregates(p, state, proof)
+        a_fin, phi_fin, b = protocol.canonical_aggregates(p, state, proof,
+                                                          timer)
         a_fin_hat = ntt_ops.ntt_fwd(a_fin, plan)
         phi_fin_hat = ntt_ops.ntt_fwd(phi_fin, plan)
 
@@ -197,11 +213,7 @@ def _local_checks(p: LabradorParams, state: State, proof: Transcript,
 
     # ---- b'' constant-term consistency (verification.rs:532-551)
     with _section(timer, "c21_b_pp_const"):
-        expected = protocol.b_pp_expected_const(
-            proof.omega, proof.psi, proof.projection,
-            state.b_prime_k[:p.l_count], p.q)
-        checks["c21_b_pp_const"] = zq.all_eq(proof.b_prime_prime[:, 0],
-                                             expected)
+        checks["c21_b_pp_const"] = b_pp_const_ok(p, state, proof)
     return checks, dict(z_c=z_c, rhs15=rhs15, t_dig=t_dig, g_dig=g_dig,
                         h_dig=h_dig)
 
@@ -311,15 +323,7 @@ def fs_challenge_report(params: LabradorParams, state: State,
         torch.equal(sample_jl(fold_in(jl_base, a), p, dev), proof.pi)
         for a in range(JL_MAX_ATTEMPTS))
 
-    # the projection's norm bound (verification.rs:568-579) on the centred
-    # int32 word of each entry, as the JAX package: every entry within
-    # sqrt(128)*beta first, so the 256-term sum of squares cannot wrap
-    # 2^64 and land under the bound
-    centered = to_signed_i32(zq.to_signed_small(proof.projection, p.q))
-    bound = 128 * p.beta_bound * p.beta_bound
-    entry_max = min(math.isqrt(bound), 2**31 - 1)
-    checks["fs_jl_norm"] = bool(torch.all(_abs_i32(centered) <= entry_max)) \
-        and sum_sq_u64(centered) <= bound
+    checks["fs_jl_norm"] = projection_norm_ok(p, proof.projection)
 
     ost = oracle.absorb(ost, DOM_JL, [proof.pi, proof.projection])
     ub = p.upper_bound
@@ -353,3 +357,79 @@ def verify_fs(params: LabradorParams, state: State, proof: Transcript, crs,
     Fiat-Shamir challenges."""
     return verify_report(params, state, proof, crs, **kw)["all_with_bpp"] \
         and fs_challenge_report(params, state, proof, crs)["fs_all"]
+
+
+def _transcript_shapes(p: LabradorParams) -> dict:
+    """The shape of each transcript field under ``p``."""
+    ub, d = p.upper_bound, p.d
+    return {"u_1": (p.kappa_1, d), "pi": (p.r, 256, p.n * d),
+            "projection": (256,), "psi": (ub, p.l_count),
+            "omega": (ub, 256), "b_prime_prime": (ub, d),
+            "alpha": (p.k_count, d), "beta": (ub, d), "u_2": (p.kappa_2, d),
+            "c": (p.r, d), "z": (p.n, d), "t": (p.r, p.kappa, d),
+            "g": (p.r, p.r, d), "h": (p.r, p.r, d)}
+
+
+def _shapes_ok(p: LabradorParams, proof: Transcript, skip=()) -> bool:
+    return all(tuple(getattr(proof, k).shape) == v
+               for k, v in _transcript_shapes(p).items() if k not in skip)
+
+
+def verify_recursive(params: LabradorParams, state, rproof: RecursiveProof,
+                     crs, mu: int = 16, kappa_new: int = 16,
+                     timer=None) -> dict:
+    """Check a recursive proof (``prover.prove_recursive``) against the
+    base statement (``params``, ``state``, ``crs``) without the base
+    opening, as {name: bool} with 'all' over four checks:
+
+    * ``base_public``: the base verifier's checks that read no field of
+      the opening z, t, g, h: the base transcript's shapes
+      (``base.shapes``), the b'' constant term (``base.c21_b_pp_const``,
+      check 21) and the projection's norm bound (``base.jl_norm``,
+      verification.rs:568-579, as ``fs_challenge_report``'s
+      ``fs_jl_norm``).  Checks 8-20 each read the opening; the folded
+      relation carries 15 and 18-20 and 16-17's algebra, not check 14's
+      ||z||^2 <= 2 gamma (the JAX package's design);
+    * ``beta_new_bound``: 1 <= beta' <= ``recursion.beta_new_max``;
+    * ``fold_statement``: the folded statement rebuilt from the public
+      fields (``recursion.fold_statement``), and the folded transcript's
+      shapes under its params;
+    * ``folded``: the folded transcript's ``verify_report``
+      ('all_with_bpp', each check also as ``folded.<check>``) on
+      ``recursion.folded_crs``.
+
+    A check after a failed ``beta_new_bound`` or ``fold_statement`` is not
+    run and reads False.  With ``timer`` (a ``utils.profiling.PhaseTimer``)
+    the sections ``base_public``, ``fold_statement`` and
+    ``folded_verify`` are timed between device syncs, and inside the last
+    the folded ``verify_report``'s own sections (its aggregates'
+    ``alpha_contract``, the checks'); without one nothing syncs."""
+    p = params
+    base = rproof.base
+    out: dict[str, bool] = {}
+    with _section(timer, "base_public"):
+        out["base.shapes"] = _shapes_ok(p, base, skip=("z", "t", "g", "h"))
+        out["base.c21_b_pp_const"] = out["base.shapes"] \
+            and b_pp_const_ok(p, state, base)
+        out["base.jl_norm"] = out["base.shapes"] \
+            and projection_norm_ok(p, base.projection)
+    out["base_public"] = all(out.values())
+    out["beta_new_bound"] = \
+        1 <= int(rproof.beta_new) <= recursion.beta_new_max(p)
+    out["fold_statement"] = out["folded"] = False
+    if out["beta_new_bound"] and out["base.shapes"]:
+        with _section(timer, "fold_statement"):
+            p2, st, _ = recursion.fold_statement(p, state, base, crs, mu,
+                                                 kappa_new,
+                                                 int(rproof.beta_new))
+            out["fold_statement"] = _shapes_ok(p2, rproof.folded)
+    if out["fold_statement"]:
+        with _section(timer, "folded_verify"):
+            rep = verify_report(p2, st, rproof.folded,
+                                recursion.folded_crs(crs, p2),
+                                decomp_mode="exact", timer=timer)
+        out.update({"folded." + k: v for k, v in rep.items()})
+        out["folded"] = rep["all_with_bpp"]
+    out["all"] = all(out[k] for k in ("base_public", "beta_new_bound",
+                                      "fold_statement", "folded"))
+    return out

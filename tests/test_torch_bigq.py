@@ -620,9 +620,10 @@ def test_bigq_cli_cpu_verbose(torch_run, monkeypatch, capsys):
 
     monkeypatch.setattr(tcli, "run_flow", flow)
     assert tcli.main(["--device", "cpu", "--big-q", "--verbose"]) == 0
-    # n, r, kappa, seed, device, verbose, -R, --big-q, --fs, --phases, --ckpt
+    # n, r, kappa, seed, device, verbose, -R, --big-q, --fs, --phases,
+    # --ckpt, --mu
     assert calls == [(2, 2, 0, FLOW_SEED, "cpu", True, False, True, False,
-                      False, "")]
+                      False, "", 0)]
     out = capsys.readouterr().out
     assert "Success: Proof Verified!" in out
     assert "(206314 B)" in out
