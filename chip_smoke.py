@@ -5,7 +5,10 @@ package's golden transcript, proves and verifies the 2^14-coefficient
 instance (BASELINE.json config 3), runs the recursion flow (``cli -R``:
 prove, fold, prove and verify the folded instance) at config 1 against the
 JAX golden digests and at the 2^14 base, and does the same at the
-2^32-scale modulus (``cli --big-q``, with and without ``-R``).  Also runs
+2^32-scale modulus (``cli --big-q``, with and without ``-R``); every
+alpha-contraction of those flows takes the kernel (``ops/alpha_cuda``),
+and its three passes are held bit-equal to their plain versions at the
+2^14 base.  Also runs
 the JL projection on a witness of 8,388,608 coefficients, above the
 4,194,303 where the port's projection used to stop, exact on the rows it
 checks against numpy.  Then the Fiat-Shamir mode (``cli --fs``): the
@@ -577,11 +580,13 @@ def phase_polymul() -> dict:
 def _kernels():
     """Every kernel of the port, each mode of kernels 2-4 apart (small q,
     big q, the range mode of each, the table mode, and the batch mode at
-    each modulus), and the SHA-256 stream kernel."""
-    from labrador_tpu_torch.ops import (ajtai_cuda, cd_cuda, polymul_cuda,
-                                        sha_cuda, u1_cuda)
+    each modulus), the SHA-256 stream kernel and the alpha-contraction
+    kernel at each modulus."""
+    from labrador_tpu_torch.ops import (ajtai_cuda, alpha_cuda, cd_cuda,
+                                        polymul_cuda, sha_cuda, u1_cuda)
     mods = (ajtai_cuda, u1_cuda, cd_cuda)
-    return ([polymul_cuda.KERNEL, sha_cuda.KERNEL]
+    return ([polymul_cuda.KERNEL, sha_cuda.KERNEL, alpha_cuda.KERNEL,
+             alpha_cuda.KERNEL_BIG]
             + [m.KERNEL for m in mods]
             + [m.KERNEL_BIG for m in mods] + [m.KERNEL_RANGE for m in mods]
             + [m.KERNEL_RANGE_BIG for m in mods]
@@ -611,6 +616,9 @@ ALL_KERNELS = ("negacyclic_polymul",) + COMMITMENT_KERNELS
 # at big q the ring products take the CRT route (kernel 1 is small-q only,
 # as in the JAX package), so these are the big-q path's kernels
 BIG_KERNELS = ("ajtai_commit_bigq", "u1_bterm_bigq", "cd_sum_bigq")
+# and a recursion flow's, the alpha-contraction kernel besides
+RECURSION_KERNELS = ALL_KERNELS + ("alpha_contract",)
+BIG_RECURSION_KERNELS = BIG_KERNELS + ("alpha_contract_bigq",)
 
 
 def phase_config1() -> None:
@@ -733,10 +741,12 @@ def phase_recursion_config1() -> None:
     golden = json.loads(GOLDEN_R.read_text())
     cfg, gb, gf = golden["config"], golden["base"], golden["folded"]
     _reset_counts()
+    e0 = _alpha_marks()
     res = run_flow(cfg["n"], cfg["r"], cfg["kappa"], cfg["seed"], "cuda",
                    recursion=True)
     launches = _counts()
-    _require_launched(launches, ALL_KERNELS, "config-1 -R")
+    _require_launched(launches, RECURSION_KERNELS, "config-1 -R")
+    _require_alpha_kernel(e0, "config-1 -R")
     _check_folded(res, "config-1 -R")
     f = res.folded
     p, p2 = res.params, f.params
@@ -802,15 +812,16 @@ def phase_recursion_real(stats: dict) -> dict:
     n' = 175, kappa' = 16, 16,290 C/D pairs) on random inputs, their
     errors merged into ``stats``.  Returns the launches of the run, the
     kernels line's counts."""
-    from labrador_tpu_torch import recursion, structs
+    from labrador_tpu_torch import structs
     from labrador_tpu_torch.cli import run_flow
-    from labrador_tpu_torch.ops import ntt
 
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
+    e0 = _alpha_marks()
     res = run_flow(**REAL, seed=42, device="cuda", recursion=True)
     launches = _counts()
-    _require_launched(launches, ALL_KERNELS, "2^14 -R")
+    _require_launched(launches, RECURSION_KERNELS, "2^14 -R")
+    alpha_share = _require_alpha_kernel(e0, "2^14 -R")
     _check_folded(res, "2^14 -R")
     f = res.folded
     p, p2 = res.params, f.params
@@ -819,7 +830,8 @@ def phase_recursion_real(stats: dict) -> dict:
              structs.transcript_size_in_bytes(res.proof, p.q, fs=True),
              structs.transcript_size_in_bytes(f.proof, p2.q, fs=True))
     log(f"2^14 -R: all checks true; folded n'={p2.n} r'={p2.r} "
-        f"k'={p2.k_count} beta'={p2.beta_override}; launches {launches}")
+        f"k'={p2.k_count} beta'={p2.beta_override}; launches {launches}; "
+        f"{alpha_share}")
     log(f"2^14 -R: prove {res.prove_s * 1e3:.2f} ms, verify "
         f"{res.verify_s * 1e3:.2f} ms, fold {f.fold_s * 1e3:.2f} ms, folded "
         f"prove {f.prove_s * 1e3:.2f} ms, folded verify "
@@ -832,43 +844,112 @@ def phase_recursion_real(stats: dict) -> dict:
     # tell a kernel from one that writes zeros: random inputs here
     hold_kernels(p2, "2^14 -R'", stats, plain_reps=1)
 
-    # the base-CRS streams of one phi_alpha_modq, timed alone
-    st = f.state
-    p0 = st.layout.params
-    plan = ntt.plan_for(p0)
-    rng = np.random.default_rng(3)
-    alpha = _t(rng.integers(0, p0.q, (p2.k_count, p0.d)))
-    aA, aB, aC = st._alpha_split(alpha)[:3]
-    steps = (
-        ("phi_alpha_modq", lambda: st.phi_alpha_modq(alpha)),
-        ("_alpha_contract_a", lambda: recursion._alpha_contract_a(
-            st.base_crs, ntt.ntt_fwd(aA, plan), p0, plan)),
-        ("_alpha_contract_b", lambda: recursion._alpha_contract_b(
-            st.base_crs, ntt.ntt_fwd(aB, plan), p0, plan)),
-        ("_alpha_contract_cd C+D", lambda: (
-            recursion._alpha_contract_cd(st.base_crs, st.base_crs._off_c,
-                                         ntt.ntt_fwd(aB, plan), p0.t_2, p0,
-                                         plan),
-            recursion._alpha_contract_cd(st.base_crs, st.base_crs._off_d,
-                                         ntt.ntt_fwd(aC, plan), p0.t_1, p0,
-                                         plan))),
-    )
-    parts = []
-    for name, fn in steps:
-        _sync()
-        t0 = time.perf_counter()
-        fn()
-        _sync()
-        parts.append(f"{name} {(time.perf_counter() - t0) * 1e3:.2f} ms")
-    log(f"2^14 -R streams (host clock after sync): {', '.join(parts)}")
+    hold_alpha_passes(f.state, "2^14 -R", stats)
     _profile_folded_prove(res)
     return launches
 
 
-def _require_big_only(counts: dict, where: str) -> None:
-    """A big-q run launches the big-q kernels, and no small-q one."""
-    _require_launched(counts, BIG_KERNELS, where)
-    small = [n for n in ALL_KERNELS if counts[n]]
+def _alpha_marks():
+    """A copy of ``recursion.ALPHA_EXPANSION`` and the alpha-contraction
+    kernels' launches so far, for ``_require_alpha_kernel``."""
+    from labrador_tpu_torch import recursion
+    from labrador_tpu_torch.ops import alpha_cuda
+    return (dataclasses.replace(recursion.ALPHA_EXPANSION),
+            alpha_cuda.KERNEL.launches + alpha_cuda.KERNEL_BIG.launches)
+
+
+def _require_alpha_kernel(marks, where: str) -> str:
+    """Every alpha-contraction since ``marks`` (``_alpha_marks``) launched
+    the kernel: the calls that ``recursion.ALPHA_EXPANSION`` counts, the
+    calls it counts at a launch and the kernels' launches are one number;
+    returns the share as a line's part."""
+    from labrador_tpu_torch import recursion
+    e0, n0 = marks
+    e1 = recursion.ALPHA_EXPANSION
+    calls, kern = e1.calls - e0.calls, e1.kernel_calls - e0.kernel_calls
+    entries = e1.kernel_entries - e0.kernel_entries
+    launched = _alpha_marks()[1] - n0
+    if not calls or not kern == launched == calls:
+        raise AssertionError(f"{where}: {kern} of {calls} alpha-"
+                             f"contractions took the kernel ({launched} "
+                             f"launches)")
+    return (f"alpha-contraction kernel share {kern / calls:.1f} ({kern} of "
+            f"{calls} calls, {entries} base-CRS entries)")
+
+
+def hold_alpha_passes(st, label: str, stats: dict) -> None:
+    """The three passes of one ``phi_alpha_modq`` (``ops/alpha_cuda``: A,
+    B, and C and D apart) at the base shapes of FoldedState ``st``, each
+    held bit-equal to its plain version on random weights with the edge
+    residues 0, 1, +-(q - 1)/2, q - 1 in, and timed with CUDA events
+    against its bound (the entries' Threefry, the weights in and the sums
+    out; the weights' limbs as many as the entries', both centred at big
+    q); the B pass's times recorded in ``stats`` under the kernel's name.
+    Then the whole ``phi_alpha_modq`` on the kernel route, host clock."""
+    from labrador_tpu_torch.ops import alpha_cuda
+    from labrador_tpu_torch.ops.zq import is_big
+
+    crs, p0 = st.base_crs, st.layout.params
+    q, d, big = p0.q, p0.d, is_big(p0.q)
+    n_tri = p0.r * (p0.r + 1) // 2
+    rng = np.random.default_rng(11)
+
+    def weights(L: int) -> torch.Tensor:
+        x = rng.integers(0, q, (L, d))
+        x.reshape(-1)[:5] = [0, 1, (q - 1) // 2, (q + 1) // 2, q - 1]
+        return _t(x)
+
+    wa, wb, wc = weights(p0.kappa), weights(p0.kappa_1), weights(p0.kappa_2)
+    top = q // 2 if big else q - 1
+    passes = (
+        ("alpha A", lambda: alpha_cuda.alpha_a(crs, wa),
+         lambda: alpha_cuda.alpha_a_plain(crs, wa), p0.n, p0.kappa),
+        ("alpha B", lambda: alpha_cuda.alpha_b(crs, wb),
+         lambda: alpha_cuda.alpha_b_plain(crs, wb),
+         p0.r * p0.t_1 * p0.kappa, p0.kappa_1),
+        ("alpha C", lambda: alpha_cuda.alpha_cd(crs, crs._off_c, wb, p0.t_2),
+         lambda: alpha_cuda.alpha_cd_plain(crs, crs._off_c, wb, p0.t_2),
+         n_tri * p0.t_2, p0.kappa_2),
+        ("alpha D", lambda: alpha_cuda.alpha_cd(crs, crs._off_d, wc, p0.t_1),
+         lambda: alpha_cuda.alpha_cd_plain(crs, crs._off_d, wc, p0.t_1),
+         n_tri * p0.t_1, p0.kappa_2),
+    )
+    info = alpha_cuda.KERNEL_BIG if big else alpha_cuda.KERNEL
+    for name, kern, plain, rows, L in passes:
+        got, want = kern(), plain()
+        _sync()
+        err = int(torch.max(torch.abs(got - want)))
+        if got.shape != want.shape or err != 0:
+            raise AssertionError(f"{name} at {label}: kernel != plain (max "
+                                 f"abs err {err})")
+        entries = rows * L * d
+        work = Work(8 * d * (L + rows), entries * THREEFRY_OPS, entries * d,
+                    limbs(top) ** 2, BIG_MAC_OPS if big else 1)
+        ms = cuda_ms(kern, 10)
+        plain_ms = cuda_ms(plain, 1)
+        log(f"kernel {name:16s} {label:13s} {str(tuple(got.shape)):15s} "
+            f"bit-equal (tolerance 0)  kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  {entries} entries, {work.describe()}; at "
+            f"{work.bound()[0] / ms:.1%} of the bound")
+        if name == "alpha B":
+            bound_ms, bound_by = work.bound()
+            stats[info.name] = {"max_abs_err": err, "ms": ms,
+                                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by, "library_ms": None}
+    alpha = weights(st.layout.k_new)
+    st.phi_alpha_modq(alpha)
+    ms, _ = _host_ms(lambda: st.phi_alpha_modq(alpha))
+    log(f"{label}: phi_alpha_modq {ms:.2f} ms on the kernel route (median, "
+        f"host clock after sync)")
+
+
+def _require_big_only(counts: dict, where: str,
+                      recursion: bool = False) -> None:
+    """A big-q run launches the big-q kernels (a recursion flow's with
+    ``recursion``), and no small-q one."""
+    _require_launched(counts, BIG_RECURSION_KERNELS if recursion
+                      else BIG_KERNELS, where)
+    small = [n for n in RECURSION_KERNELS if counts[n]]
     if small:
         raise AssertionError(f"{where}: small-q kernels {small} launched "
                              f"({counts})")
@@ -976,10 +1057,12 @@ def phase_bigq_recursion_config1() -> None:
     g = json.loads(GOLDEN_BIG.read_text())["recursion"]
     cfg, gb, gf = g["config"], g["base"], g["folded"]
     _reset_counts()
+    e0 = _alpha_marks()
     res = run_flow(cfg["n"], cfg["r"], cfg["kappa"], cfg["seed"], "cuda",
                    recursion=True, big_q=True)
     launches = _counts()
-    _require_big_only(launches, "config-1 --big-q -R")
+    _require_big_only(launches, "config-1 --big-q -R", recursion=True)
+    _require_alpha_kernel(e0, "config-1 --big-q -R")
     _check_folded(res, "config-1 --big-q -R")
     f = res.folded
     p, p2 = res.params, f.params
@@ -1033,10 +1116,12 @@ def phase_bigq_recursion_real(stats: dict) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
+    e0 = _alpha_marks()
     res = run_flow(**REAL, seed=42, device="cuda", recursion=True,
                    big_q=True)
     launches = _counts()
-    _require_big_only(launches, "2^14 --big-q -R")
+    _require_big_only(launches, "2^14 --big-q -R", recursion=True)
+    alpha_share = _require_alpha_kernel(e0, "2^14 --big-q -R")
     _check_folded(res, "2^14 --big-q -R")
     f = res.folded
     p, p2 = res.params, f.params
@@ -1048,7 +1133,7 @@ def phase_bigq_recursion_real(stats: dict) -> dict:
         f"{_nonzero_share(f.witness):.4f}; folded n'={p2.n} r'={p2.r} "
         f"k'={p2.k_count} kappa'={p2.kappa} beta'={p2.beta_override} "
         f"t1'={p2.t_1}/b1'={p2.b_1} t2'={p2.t_2}/b2'={p2.b_2}; launches "
-        f"{launches}")
+        f"{launches}; {alpha_share}")
     log(f"2^14 --big-q -R: prove {res.prove_s * 1e3:.2f} ms, verify "
         f"{res.verify_s * 1e3:.2f} ms, fold {f.fold_s * 1e3:.2f} ms, folded "
         f"prove {f.prove_s * 1e3:.2f} ms, folded verify "
@@ -1057,13 +1142,14 @@ def phase_bigq_recursion_real(stats: dict) -> dict:
     log(f"2^14 --big-q -R: fs size base {sizes[0]} B -> folded {sizes[1]} B")
     _profile_folded_prove(res, "2^14 --big-q -R")
     hold_kernels(p2, "2^14 -R' big-q", stats, plain_reps=1)
+    hold_alpha_passes(f.state, "2^14 big-q", stats)
 
     # the fold of the TPU rounds' size record (PERF.md): mu = 16 witness
     # vectors for the digit stream instead of the CLI's round(sqrt(.)),
     # through prove_recursive / verify_recursive (no base opening)
     from labrador_tpu_torch.utils.profiling import PhaseTimer
     timer = PhaseTimer("cuda")
-    e0 = dataclasses.replace(recursion.ALPHA_EXPANSION)
+    e0 = _alpha_marks()
     rp = prover.prove_recursive(p, res.witness, res.state, res.crs,
                                 res.verifier_key, mu=16, timer=timer,
                                 base=res.proof)
@@ -1072,14 +1158,16 @@ def phase_bigq_recursion_real(stats: dict) -> dict:
     e1 = recursion.ALPHA_EXPANSION
     if not rep3["all"] or not all(rep3.values()):
         raise AssertionError(f"2^14 --big-q -R mu=16 failed: {rep3}")
+    alpha_share = _require_alpha_kernel(e0, "2^14 --big-q -R mu=16")
     p3 = recursion.folded_params(recursion.make_layout(p, 16), 16,
                                  rp.beta_new)
     log(f"2^14 --big-q -R mu=16: folded n'={p3.n} r'={p3.r}, "
         f"verify_recursive all true; fs size {sizes[0]} B -> "
         f"{structs.transcript_size_in_bytes(rp.folded, p3.q, fs=True)} B "
         f"folded, {rp.transcript_size_in_bytes(p.q, fs=True)} B recursive "
-        f"proof; alpha-contractions {e1.calls - e0.calls} calls, "
-        f"{e1.entries - e0.entries} base-CRS entries; sections (ms) "
+        f"proof; alpha-contractions {e1.calls - e0[0].calls} calls, "
+        f"{e1.entries - e0[0].entries} base-CRS entries, {alpha_share}; "
+        f"sections (ms) "
         + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in timer.phases.items()))
     return launches
 
@@ -1280,8 +1368,9 @@ def phase_fs_config1() -> None:
         if mode == "big_q":
             _require_big_only(launches, "config-1 --fs --big-q")
         else:
-            _require_launched(launches, ALL_KERNELS if mode == "recursion"
-                              else COMMITMENT_KERNELS, f"config-1 --fs {mode}")
+            _require_launched(launches, RECURSION_KERNELS
+                              if mode == "recursion" else COMMITMENT_KERNELS,
+                              f"config-1 --fs {mode}")
         base = got["base"] if mode == "recursion" else got
         log(f"config1 --fs {mode}: sha256 {base['transcript_sha256']}, fs "
             f"size {base['transcript_size_in_bytes_fs']} B == JAX golden; "
@@ -2383,7 +2472,7 @@ def main() -> int:
     phase_bigq_recursion_config1()
     _add_counts(launches, {k: v for k, v in
                            phase_bigq_recursion_real(stats).items()
-                           if k in BIG_KERNELS})
+                           if k in BIG_RECURSION_KERNELS})
     stats["sha_stream"] = phase_sha_stream()
     phase_fs_config1()
     _add_counts(launches, phase_fs_real(big_q=False))

@@ -1,16 +1,16 @@
-// The tensor-core stream kernel of the u1 B-term (u1.cu) and the C/D sums
-// (cd.cu): CRS entries generated in-kernel straight into int8 mma.sync
-// fragments.
+// The tensor-core stream kernel of the u1 B-term (u1.cu), the C/D sums
+// (cd.cu) and the alpha-contractions of a folded statement (alpha.cu): CRS
+// entries generated in-kernel straight into int8 mma.sync fragments.
 //
-// Both commitments compute
+// Each computes
 //     out[row] = sum_{l < L} M(l, row) (*) dig[l]   mod q
 // over a stream of L digit polynomials, (*) the negacyclic product in
 // Zq[X]/(X^64 + 1), M(l, row) the ring element of the virtual CRS at the
 // offset off.stream(l) + off.row(row) that the kernel's offset functor
-// gives (64 consecutive Threefry counters from there).  They differ only
-// in that offset.  The stream term, which divides l, is computed once per
-// ring element and block into shared memory; the row term once per
-// thread.
+// gives (64 consecutive Threefry counters from there).  They differ in
+// that offset, and the alpha-contractions in their operand (below).  The
+// stream term, which divides l, is computed once per ring element and
+// block into shared memory; the row term once per thread.
 //
 // One GEMM whose CRS operand never exists in memory, taken transposed:
 //     out^T (64 x rows) = T^T (64 x 64L) . M^T (64L x rows),
@@ -61,16 +61,26 @@
 //     <= 127 (256^DL - 1) / 255.  DL <= 4.  The kernel checks each centred
 //     digit against that bound as it loads it, at no extra pass over the
 //     stream, and sets *bad for one beyond it; the wrappers read the flag
-//     after the launch (one device sync) and raise.
+//     after the launch (one device sync) and raise;
+//   * full residues (an offset functor that derives from
+//     FullResidueOperand: the alpha weights of alpha.cu, any residue in
+//     [0, q)): as many signed limbs as entry limbs, DL = EL, which hold
+//     every centred residue (|x| <= q/2 <= 16256 in 2 limbs at small q;
+//     |x| <= 2^32 in 5 at big q, beyond the 2,139,062,143 of 4), so no
+//     check and no flag.  At big q a centred residue does not fit int32:
+//     the digit chunk holds int64 there, and takes MMA_LC / 2 ring
+//     elements so that the block stays within 48 KB of static shared
+//     memory (29,760 B; 16 ring elements would take 59,520 B).
 // Accumulation: the limb products of one weight w = a + b (entry limb a,
-// digit limb b; at most min(EL, DL) <= 4 pairs) share an int32 fragment.
-// Each mma adds 32 products of magnitude <= 255 * 128 = 32640, so a half
-// ring element adds at most 4 * 32 * 32640 < 2^22 to a sum, and a flush
-// after every MMA_FLUSH_L = 256 ring elements that a warp adds (whatever
-// its l-group) keeps it below 512 * 4 * 32 * 32640 = 2,139,095,040 <
-// 2^31 - 1.  At the flush sum_w 2^(8w) S_w is added exactly in int64 at
-// small q (below 2^48) and at big q as sum_w (2^(8w) mod q) S_w in
-// __int128 (each term below 2^64) reduced mod q.
+// digit limb b; at most P = min(EL, DL) pairs) share an int32 fragment.
+// Each mma adds 32 products of magnitude <= 255 * 128 = 32640, so a ring
+// element (two halves) adds at most 2 * P * 32 * 32640 to a sum, and a
+// flush after every F = mma_flush_len(P) ring elements that a warp adds
+// (whatever its l-group) keeps it within 2 F P 32 32640 <= 2^31 - 1: F =
+// 256 at P <= 4 (2,139,095,040), 128 at P = 5 (1,336,934,400; 256 would
+// reach 2,673,868,800).  At the flush sum_w 2^(8w) S_w is added exactly
+// in int64 at small q (below 2^48) and at big q as sum_w (2^(8w) mod q)
+// S_w in __int128 (each term below 2^64) reduced mod q.
 //
 // What bounds it on the H100: Threefry (75 int32 operations per entry)
 // plus the Barrett reduction and the limb split, on the CUDA cores; the
@@ -98,18 +108,42 @@
 // times, and their distinct entries fit the 50 MB L2 at 2^14 (41.7 MB).
 #pragma once
 
+#include <type_traits>
+
 #include "threefry.cuh"
 
 namespace {
 
 constexpr int MMA_LC = 16;          // ring elements per shared chunk
 constexpr int MMA_MAX_WARPS = 8;    // warps per block
-constexpr int MMA_FLUSH_L = 256;    // ring elements between int32 flushes
+constexpr int MMA_FLUSH_L = 256;    // most ring elements between flushes
 constexpr int MMA_COPY_WORDS = 40;  // a shifted copy: 32 words + padding
 // row tiles of a block whose warps split the ring elements (groups > 1)
 constexpr int MMA_MAX_GROUP_TILES = MMA_MAX_WARPS / 2;
-static_assert(MMA_FLUSH_L * 2 * 4 * 32 * 32640LL <= 2147483647LL,
+
+// Ring elements a warp adds between int32 flushes with `pairs` limb pairs
+// a weight: the largest power of two up to MMA_FLUSH_L with 2 F pairs 32
+// 32640 <= 2^31 - 1 (the bound at the top).
+__host__ __device__ constexpr int mma_flush_len(int pairs) {
+  int f = MMA_FLUSH_L;
+  while (2LL * f * pairs * 32 * 32640 > 2147483647LL) f /= 2;
+  return f;
+}
+static_assert(mma_flush_len(4) == MMA_FLUSH_L && mma_flush_len(5) == 128,
               "int32 limb sums may overflow between flushes");
+
+// The operand kind of the alpha-contractions' offset functors (alpha.cu):
+// full residues, DL = EL limbs and no digit check.
+struct FullResidueOperand {};
+
+// A digit of the shared chunk: int32 up to 4 limbs, int64 for the 5 of a
+// full residue at big q; the chunk's ring elements.
+template <int DL>
+using MmaDigit = std::conditional_t<(DL > 4), int64_t, int32_t>;
+template <int DL>
+__host__ __device__ constexpr int mma_chunk() {
+  return DL > 4 ? MMA_LC / 2 : MMA_LC;
+}
 
 // One mma.sync.m16n8k32: c (16 x 8, int32) += a (16 x 32 signed bytes) .
 // b (32 x 8 unsigned bytes).
@@ -188,9 +222,9 @@ __device__ __forceinline__ void mma_flush(int32_t (&acc)[NW][MT][4],
 template <int DL>
 union MmaShared {
   struct {
-    int32_t dsh[MMA_LC][D];
-    uint32_t circ[MMA_LC][DL][4][MMA_COPY_WORDS];
-    uint64_t loff[MMA_LC];   // off.stream(l) of the chunk's ring elements
+    MmaDigit<DL> dsh[mma_chunk<DL>()][D];
+    uint32_t circ[mma_chunk<DL>()][DL][4][MMA_COPY_WORDS];
+    uint64_t loff[mma_chunk<DL>()];   // off.stream(l) of the chunk's l
   } s;
   unsigned long long red[MMA_MAX_GROUP_TILES * 8][D];
 };
@@ -200,7 +234,8 @@ union MmaShared {
 // inst_stride.  EL entry limbs (2: small q, 5: big q), DL digit limbs;
 // off.stream(l) + off.row(row) the CRS offset of coefficient 0 of M(l,
 // row), src_all.at(b)(offset) instance b's entry there (threefry.cuh:
-// ThreefrySrc or TableSrc).
+// ThreefrySrc or TableSrc).  For an Off that derives from
+// FullResidueOperand nothing is checked and bad is not written.
 template <int EL, int DL, class Off, class Src>
 __global__ void __launch_bounds__(MMA_MAX_WARPS * 32)
 mma_stream_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
@@ -208,6 +243,10 @@ mma_stream_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
                   Src src_all, int64_t inst_stride, Off off, int tiles,
                   int l_per_split) {
   constexpr int NW = EL + DL - 1;  // limb weights
+  constexpr int LC = mma_chunk<DL>();
+  constexpr int FLUSH = mma_flush_len(EL < DL ? EL : DL);
+  constexpr bool FULL = std::is_base_of_v<FullResidueOperand, Off>;
+  using Dig = MmaDigit<DL>;
   // the largest |digit| that DL signed limbs hold for x and -x alike
   constexpr int64_t cover = 127 * ((int64_t{1} << (8 * DL)) - 1) / 255;
   __shared__ MmaShared<DL> sh;
@@ -245,16 +284,18 @@ mma_stream_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
 
   int since_flush = 0;
   bool beyond = false;
-  for (int l0 = l_begin; l0 < l_end; l0 += MMA_LC) {
-    const int nl = min(MMA_LC, l_end - l0);
-    for (int e = threadIdx.x; e < MMA_LC * D; e += nthreads) {
+  for (int l0 = l_begin; l0 < l_end; l0 += LC) {
+    const int nl = min(LC, l_end - l0);
+    for (int e = threadIdx.x; e < LC * D; e += nthreads) {
       const int l = e / D, c = e % D;
-      int32_t v = 0;
+      Dig v = 0;
       if (l < nl) {
         const int64_t x = dig[static_cast<int64_t>(l0 + l) * D + c];
         const int64_t centred = x > half_q ? x - q : x;
-        beyond |= centred > cover || centred < -cover;
-        v = static_cast<int32_t>(centred);
+        if constexpr (!FULL) {
+          beyond |= centred > cover || centred < -cover;
+        }
+        v = static_cast<Dig>(centred);
       }
       sh.s.dsh[l][c] = v;
     }
@@ -263,7 +304,7 @@ mma_stream_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
     }
     __syncthreads();
     // circ[l][b][sh][w]: limb b of rext[4w + sh + j] in byte j
-    for (int e = threadIdx.x; e < MMA_LC * 4 * 32; e += nthreads) {
+    for (int e = threadIdx.x; e < LC * 4 * 32; e += nthreads) {
       const int w = e & 31, shift = (e >> 5) & 3, l = e >> 7;
       uint32_t word[DL];
 #pragma unroll
@@ -271,7 +312,7 @@ mma_stream_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int p = 4 * w + shift + j;
-        int32_t v = 0;
+        Dig v = 0;
         if (p < 64) {
           v = sh.s.dsh[l][63 - p];
         } else if (p < 128) {
@@ -279,7 +320,7 @@ mma_stream_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
         }
 #pragma unroll
         for (int b = 0; b < DL; ++b) {
-          const int32_t limb = ((v + 128) & 255) - 128;
+          const Dig limb = ((v + 128) & 255) - 128;
           word[b] |= static_cast<uint32_t>(limb & 255) << (8 * j);
           v = (v - limb) >> 8;
         }
@@ -324,7 +365,7 @@ mma_stream_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
           }
         }
       }
-      if (++since_flush == MMA_FLUSH_L) {
+      if (++since_flush == FLUSH) {
         mma_flush<EL, NW>(acc, res, q);
         since_flush = 0;
       }
@@ -332,7 +373,9 @@ mma_stream_kernel(const int64_t* __restrict__ dig, int64_t* __restrict__ part,
     __syncthreads();
   }
   mma_flush<EL, NW>(acc, res, q);
-  if (beyond) atomicOr(bad + inst, 1);
+  if constexpr (!FULL) {
+    if (beyond) atomicOr(bad + inst, 1);
+  }
 
   // c[0..3] of m-tile mt: coefficient 16 mt + g (+8 for c >= 2), CRS row
   // row0 + 2 t (+1 for odd c)
@@ -392,6 +435,24 @@ cudaError_t launch_mma(const int64_t* dig, int64_t* part, int* bad, int L,
   return cudaGetLastError();
 }
 
+// A launch shape and instance count the kernel takes (ops/u1_cuda.py
+// launch_shape gives them).
+inline bool mma_shape_ok(int tiles, int groups, int splits, int l_per_split,
+                         int instances) {
+  return tiles >= 1 && groups >= 1 && tiles * groups <= MMA_MAX_WARPS &&
+         (groups == 1 || tiles <= MMA_MAX_GROUP_TILES) && splits >= 1 &&
+         l_per_split % MMA_LC == 0 && instances >= 1 && instances <= 65535;
+}
+
+// The second pass: out (n entries) = the sum of the splits' partials.
+inline cudaError_t launch_reduce_splits(const int64_t* part, int64_t* out,
+                                        int splits, int64_t n, int64_t q,
+                                        cudaStream_t st) {
+  reduce_splits_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                         st>>>(part, out, splits, n, q);
+  return cudaGetLastError();
+}
+
 // The stream kernel in the mode of q and digit_limbs over `instances`
 // instances (instance b: key src.at(b), digits at dig + b * inst_stride),
 // then the split reduction into out (instances, rows, D); bad[0 ..
@@ -406,9 +467,7 @@ cudaError_t launch_mma_stream(const int64_t* dig, int64_t* part,
                               int64_t inst_stride, Off off, int digit_limbs,
                               int tiles, int groups, int splits,
                               int l_per_split, cudaStream_t st) {
-  if (tiles < 1 || groups < 1 || tiles * groups > MMA_MAX_WARPS ||
-      (groups > 1 && tiles > MMA_MAX_GROUP_TILES) || splits < 1 ||
-      l_per_split % MMA_LC != 0 || instances < 1 || instances > 65535) {
+  if (!mma_shape_ok(tiles, groups, splits, l_per_split, instances)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaMemsetAsync(bad, 0, sizeof(int) * instances, st);
@@ -429,10 +488,38 @@ cudaError_t launch_mma_stream(const int64_t* dig, int64_t* part,
   }
 #undef LAB_MMA
   if (err != cudaSuccess) return err;
-  const int64_t n = static_cast<int64_t>(instances) * rows * D;
-  reduce_splits_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
-                         st>>>(part, out, splits, n, q);
-  return cudaGetLastError();
+  return launch_reduce_splits(part, out, splits,
+                              static_cast<int64_t>(instances) * rows * D, q,
+                              st);
+}
+
+// The stream kernel over one Threefry instance whose operand is full
+// residues (Off derives from FullResidueOperand: residues in [0, q), or
+// any value whose centred residue is at most q/2 in magnitude): DL = EL,
+// 2 limbs at small q and 5 at big q, no digit check and no flag; then the
+// split reduction into out (rows, D).  Returns the first launch error, or
+// cudaErrorInvalidValue for a shape the kernel does not take.
+template <class Off>
+cudaError_t launch_mma_full(const int64_t* dig, int64_t* part, int64_t* out,
+                            int L, int rows, int64_t q, ThreefrySrc src,
+                            Off off, int tiles, int groups, int splits,
+                            int l_per_split, cudaStream_t st) {
+  static_assert(std::is_base_of_v<FullResidueOperand, Off>,
+                "launch_mma_full takes the offsets of a full-residue operand");
+  if (!mma_shape_ok(tiles, groups, splits, l_per_split, 1)) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t err =
+      q <= SMALL_Q_MAX
+          ? launch_mma<2, 2, Off, ThreefrySrc>(dig, part, nullptr, L, rows, q,
+                                               src, 1, 0, off, tiles, groups,
+                                               splits, l_per_split, st)
+          : launch_mma<5, 5, Off, ThreefrySrc>(dig, part, nullptr, L, rows, q,
+                                               src, 1, 0, off, tiles, groups,
+                                               splits, l_per_split, st);
+  if (err != cudaSuccess) return err;
+  return launch_reduce_splits(part, out, splits,
+                              static_cast<int64_t>(rows) * D, q, st);
 }
 
 }  // namespace

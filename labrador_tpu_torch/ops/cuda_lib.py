@@ -55,6 +55,12 @@ _SIGNATURES = {
     "polymul_bhat_launch": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I,
                             _P),
     "sha_stream_launch": (_P, _P, _I, _I64, _U32, _P),
+    "alpha_a_launch": (_P, _P, _P, _I, _I, _I64, _U64, _P, _I, _I, _I, _I,
+                       _P),
+    "alpha_b_launch": (_P, _P, _P, _I, _I, _I, _U64, _I64, _U64, _P, _I, _I,
+                       _I, _I, _P),
+    "alpha_cd_launch": (_P, _P, _P, _I, _I, _I, _I, _U64, _I64, _U64, _P, _I,
+                        _I, _I, _I, _P),
     "cuda_error_string": (_I,),
 }
 

@@ -18,7 +18,8 @@ JAX module, whose docstring derives them:
              kappa_2 rows of u2, <z,z>, sum <phi_i,z> c_i, and the b row.
 
 ``fold`` returns the structured relation (``FoldedState``), whose
-alpha-contractions stream the base CRS; ``recursive_step`` builds the dense
+alpha-contractions stream the base CRS (on CUDA through the stream kernel
+of ``ops/alpha_cuda``); ``recursive_step`` builds the dense
 relation (tests only, it grows with kappa x M).  ``fold`` is two halves:
 ``build_witness`` (the prover's, from the opening z, t, g, h) and
 ``fold_statement`` (anyone's, from the transcript's other fields, the
@@ -39,16 +40,13 @@ import torch
 
 from . import protocol
 from .crs import CRS
+from .ops import alpha_cuda
 from .ops import ntt as ntt_ops
 from .ops import polymul_cuda
 from .ops import zq
 from .ops.modmath import mod_pos, mulmod
 from .params import LabradorParams, _ceil_log
 from .structs import State, Transcript, gram_hat
-
-# CRS entries expanded per streaming step of the alpha-contractions (4 Mi:
-# a step's evaluation-domain tile is P x 32 MiB of int64)
-_STEP_COEFFS = 1 << 22
 
 # The CLI's CRS seeds, the JAX CLI's (its golden files fix them): the
 # base instance's CRS from seed * CRS_SEED_MULT mod 2^64, the folded
@@ -58,21 +56,9 @@ CRS_SEED_MULT = 0x9E3779B97F4A7C15
 FOLDED_CRS_XOR = 0xF01D
 
 
-@dataclass
-class ExpansionCount:
-    """Calls of the alpha-contractions (``_alpha_contract_a/_b/_cd``) and
-    the base-CRS entries they expanded, incremented where they expand (as
-    ``ops.cuda_lib.KernelInfo.launches`` counts a kernel's launches)."""
-
-    calls: int = 0
-    entries: int = 0
-
-    def add(self, tile: torch.Tensor) -> torch.Tensor:
-        self.entries += tile.numel()
-        return tile
-
-
-ALPHA_EXPANSION = ExpansionCount()
+# Calls and base-CRS entries of the alpha-contractions, and those of the
+# kernel route (``ops/alpha_cuda.ExpansionCount``)
+ALPHA_EXPANSION = alpha_cuda.EXPANSION
 
 
 def folded_crs(base_crs: CRS, params_new: LabradorParams) -> CRS:
@@ -396,74 +382,27 @@ def recursive_step(params: LabradorParams, state: State, proof: Transcript,
 # memory; the dense (k', M, d) tensor never exists.
 # ---------------------------------------------------------------------------
 
-def _contract_rows_hat(w_hat: torch.Tensor, m_hat: torch.Tensor,
-                       plan) -> torch.Tensor:
-    """sum_rho w[rho] * M[rho, col] in the eval domain:
-    w_hat (P, R, d), m_hat (P, R, C, d) -> (P, C, d)."""
-    return ntt_ops.eval_matmul(w_hat[:, None], m_hat, plan)[:, 0]
+def _alpha_contract_a(crs: CRS, w: torch.Tensor,
+                      p0: LabradorParams) -> torch.Tensor:
+    """sum_rho w_rho * A[rho] -> (n, d) mod q, w (kappa, d)."""
+    return alpha_cuda.alpha_a(crs, w)
 
 
-def _alpha_contract_a(crs: CRS, w_hat: torch.Tensor, p0: LabradorParams,
-                      plan) -> torch.Tensor:
-    """sum_rho w_rho * A[rho] -> (n, d) mod q, streaming A row tiles."""
-    dev = w_hat.device
-    ALPHA_EXPANSION.calls += 1
-    tile = max(1, _STEP_COEFFS // (p0.n * p0.d))
-    acc = torch.zeros((plan.n_primes, p0.n, p0.d), dtype=torch.int64,
-                      device=dev)
-    for r0 in range(0, p0.kappa, tile):
-        nrows = min(tile, p0.kappa - r0)
-        a_hat = ntt_ops.ntt_fwd(ALPHA_EXPANSION.add(
-            crs.a_rows_dyn(r0, nrows, device=dev)), plan)
-        acc = ntt_ops.eval_add(acc, _contract_rows_hat(
-            w_hat[:, r0:r0 + nrows], a_hat, plan), plan)
-    return ntt_ops.ntt_inv_modq(acc, plan)
-
-
-def _alpha_contract_b(crs: CRS, w_hat: torch.Tensor, p0: LabradorParams,
-                      plan) -> torch.Tensor:
+def _alpha_contract_b(crs: CRS, w: torch.Tensor,
+                      p0: LabradorParams) -> torch.Tensor:
     """S_B[m] = sum_rho w_rho * B_m[rho, col] for all m = i * t_1 + k ->
-    (r, t_1, kappa, d) mod q, one B matrix (or column tile of one) per
-    step."""
-    dev = w_hat.device
-    ALPHA_EXPANSION.calls += 1
-    m_total = p0.r * p0.t_1
-    cols = max(1, min(p0.kappa, _STEP_COEFFS // (p0.kappa_1 * p0.d)))
-    acc = torch.empty((plan.n_primes, m_total, p0.kappa, p0.d),
-                      dtype=torch.int64, device=dev)
-    for m in range(m_total):
-        for c0 in range(0, p0.kappa, cols):
-            nc = min(cols, p0.kappa - c0)
-            b_hat = ntt_ops.ntt_fwd(ALPHA_EXPANSION.add(
-                crs.b_mat_dyn(m, col0=c0, ncols=nc, device=dev)), plan)
-            acc[:, m, c0:c0 + nc] = _contract_rows_hat(w_hat, b_hat, plan)
-    return ntt_ops.ntt_inv_modq(acc, plan).reshape(p0.r, p0.t_1, p0.kappa,
-                                                   p0.d)
+    (r, t_1, kappa, d) mod q, w (kappa_1, d)."""
+    return alpha_cuda.alpha_b(crs, w).reshape(p0.r, p0.t_1, p0.kappa, p0.d)
 
 
-def _alpha_contract_cd(crs: CRS, base: int, w_hat: torch.Tensor, t_used: int,
-                       p0: LabradorParams, plan) -> torch.Tensor:
+def _alpha_contract_cd(crs: CRS, base: int, w: torch.Tensor, t_used: int,
+                       p0: LabradorParams) -> torch.Tensor:
     """S[tri, k] = <w, M_{tri,k}> over the kappa_2 rows of the C/D column
     vectors at base + (k + t_1 * tri) * kappa_2 * d (the t_1-stride quirk)
-    -> (n_tri, t_used, d) mod q, streaming triangle chunks."""
-    p = p0
-    dev = w_hat.device
-    ALPHA_EXPANSION.calls += 1
-    n_tri = p.r * (p.r + 1) // 2
-    col = p.kappa_2 * p.d
-    chunk = max(1, _STEP_COEFFS // (t_used * col))
-    parts = []
-    for tri0 in range(0, n_tri, chunk):
-        nt = min(chunk, n_tri - tri0)
-        grp = ALPHA_EXPANSION.add(crs._expand_dyn(
-            base, tri0, p.t_1 * col, (nt, t_used, p.kappa_2, p.d),
-            (p.t_1 * col, col, p.d, 1), device=dev))
-        mats_hat = ntt_ops.ntt_fwd(grp.reshape(nt * t_used, p.kappa_2, p.d),
-                                   plan)                 # (P, m, k2, d)
-        parts.append(ntt_ops.eval_matmul(mats_hat, w_hat[:, :, None, :],
-                                         plan)[:, :, 0])
-    return ntt_ops.ntt_inv_modq(torch.cat(parts, dim=1), plan).reshape(
-        n_tri, t_used, p.d)
+    -> (n_tri, t_used, d) mod q, w (kappa_2, d)."""
+    n_tri = p0.r * (p0.r + 1) // 2
+    return alpha_cuda.alpha_cd(crs, base, w, t_used).reshape(n_tri, t_used,
+                                                             p0.d)
 
 
 @dataclass(eq=False)
@@ -510,7 +449,8 @@ class FoldedState:
 
     def phi_alpha_modq(self, alpha: torch.Tensor) -> torch.Tensor:
         """sum_k alpha_k phi_k -> (r', n', d) canonical mod q: one A pass,
-        one B pass and the C/D columns of the base CRS."""
+        one B pass and the C/D columns of the base CRS (on CUDA one
+        stream-kernel launch each, ``ops/alpha_cuda``)."""
         lay = self.layout
         p0 = lay.params
         q, d = p0.q, p0.d
@@ -518,8 +458,6 @@ class FoldedState:
         crs = self.base_crs
         aA, aB, aC, a16, a17, a18 = self._alpha_split(alpha)
         aA_hat = ntt_ops.ntt_fwd(aA, plan)
-        aB_hat = ntt_ops.ntt_fwd(aB, plan)
-        aC_hat = ntt_ops.ntt_fwd(aC, plan)
         c_hat = ntt_ops.ntt_fwd(self.c, plan)
         bpow = _powers(p0.b, lay.nz, q)
         b1pow = _powers(p0.b_1, p0.t_1, q)
@@ -528,14 +466,14 @@ class FoldedState:
                            device=alpha.device)
 
         # z blocks: bpow_k * (sum_rho aA_rho A[rho] + a17 * cphi)
-        s_a = _alpha_contract_a(crs, aA_hat, p0, plan)          # (n, d)
+        s_a = _alpha_contract_a(crs, aA, p0)                    # (n, d)
         zc = zq.add(s_a, _ring_mul_modq(a17, self.cphi, plan), q)
         for k in range(lay.nz):
             pos = lay.z_pos(k, 0)
             flat[pos:pos + p0.n] = _scale_modq(zc, bpow[k], q)
 
         # t digit blocks: S_B[i, k2, col] - b1pow_k2 * (aA_col * c_i)
-        s_b = _alpha_contract_b(crs, aB_hat, p0, plan)          # (r,t1,kap,d)
+        s_b = _alpha_contract_b(crs, aB, p0)                    # (r,t1,kap,d)
         ac = ntt_ops.ntt_inv_modq(ntt_ops.eval_mul(
             aA_hat[:, :, None, :], c_hat[:, None, :, :], plan), plan)
         ac_t = torch.swapaxes(ac, 0, 1)                        # (r, kap, d)
@@ -549,10 +487,10 @@ class FoldedState:
         # g digit blocks: <aB, C_tri,k> + (mult b2pow_k)(a18 a_fin - a16 cc)
         # h digit blocks: <aC, D_tri,k> - (mult b1pow_k) a17 cc
         #                 + [i == j] b1pow_k a18
-        s_c = _alpha_contract_cd(crs, crs._off_c, aB_hat, p0.t_2, p0, plan)
+        s_c = _alpha_contract_cd(crs, crs._off_c, aB, p0.t_2, p0)
         g_base = zq.sub(_ring_mul_modq(a18, self.a_fin, plan),
                         _ring_mul_modq(a16, self.cc, plan), q)  # (r, r, d)
-        s_d = _alpha_contract_cd(crs, crs._off_d, aC_hat, p0.t_1, p0, plan)
+        s_d = _alpha_contract_cd(crs, crs._off_d, aC, p0.t_1, p0)
         h_base = zq.sub(torch.zeros_like(self.cc),
                         _ring_mul_modq(a17, self.cc, plan), q)
         iu, ju = np.triu_indices(p0.r)
