@@ -18,8 +18,7 @@ each call is one launch of the tensor-core stream kernel
 CRS generated in registers and the weights taken as full residues (as many
 signed limbs as the entries, ``u1_cuda.entry_limbs(q)``, which hold every
 centred residue; no digit check, so no device sync); launches
-count in ``KERNEL`` / ``KERNEL_BIG``, and ``EXPANSION`` counts every call
-and the calls that launched.  Only a Threefry ``crs.CRS`` takes
+count in ``KERNEL`` / ``KERNEL_BIG``.  Only a Threefry ``crs.CRS`` takes
 the kernel: a folded statement's base CRS always is one.  Elsewhere the
 plain version expands the entries a tile at a time in torch ops and
 contracts them through the CRT transforms (``ops/ntt``), as the JAX
@@ -27,8 +26,6 @@ package does.
 """
 
 from __future__ import annotations
-
-from dataclasses import dataclass
 
 import torch
 
@@ -50,23 +47,6 @@ KERNEL_BIG = cuda_lib.KernelInfo(
     replaces="none: labrador_tpu/recursion.py contracts in XLA ops")
 
 
-@dataclass
-class ExpansionCount:
-    """Calls of the alpha-contractions and the base-CRS entries they
-    contract, and of those the calls and entries of the kernel route,
-    counted in ``_launch`` once a launch has returned without error (as
-    ``cuda_lib.KernelInfo.launches`` counts a kernel's launches): on the
-    card kernel_calls / calls is the kernel route's share, 1.0."""
-
-    calls: int = 0
-    entries: int = 0
-    kernel_calls: int = 0
-    kernel_entries: int = 0
-
-
-EXPANSION = ExpansionCount()
-
-
 # CRS entries the plain version expands per step (4 Mi: a step's
 # evaluation-domain tile is P x 32 MiB of int64)
 _STEP_COEFFS = 1 << 22
@@ -74,10 +54,8 @@ _STEP_COEFFS = 1 << 22
 
 def _route(crs, w: torch.Tensor, L: int, rows: int, plain, entry: str,
            *shape) -> torch.Tensor:
-    """Count the call, then launch the kernel on CUDA (``_launch``) and
-    call ``plain()`` elsewhere."""
-    EXPANSION.calls += 1
-    EXPANSION.entries += L * rows * crs.params.d
+    """Launch the kernel on CUDA (``_launch``), call ``plain()``
+    elsewhere."""
     if w.is_cuda:
         return _launch(crs, w, L, rows, entry, *shape)
     return plain()
@@ -202,6 +180,4 @@ def _launch(crs, w: torch.Tensor, L: int, rows: int, entry: str,
         splits, l_per_split, cuda_lib.stream_ptr(dev))
     cuda_lib.check(err)
     (KERNEL_BIG if is_big(p.q) else KERNEL).launches += 1
-    EXPANSION.kernel_calls += 1
-    EXPANSION.kernel_entries += L * rows * p.d
     return out

@@ -56,11 +56,6 @@ CRS_SEED_MULT = 0x9E3779B97F4A7C15
 FOLDED_CRS_XOR = 0xF01D
 
 
-# Calls and base-CRS entries of the alpha-contractions, and those of the
-# kernel route (``ops/alpha_cuda.ExpansionCount``)
-ALPHA_EXPANSION = alpha_cuda.EXPANSION
-
-
 def folded_crs(base_crs: CRS, params_new: LabradorParams) -> CRS:
     """The folded instance's CRS, derived from the base CRS alone by the
     CLI's convention: the base key is seed * CRS_SEED_MULT mod 2^64

@@ -19,10 +19,8 @@ tolerance is 0):
 * refusals: a MaterializedCRS in a batch, operands without the instance
   axis, and the digit flag of a batch naming its instance.
 
-On a CUDA machine, also each batch mode against its plain version.  JAX
-runs only in a child process (``jax_side``), so on a card machine without
-JAX ``python -m pytest tests/test_torch_batch.py -m cuda --noconftest``
-runs the CUDA case."""
+JAX runs only in a child process (``jax_side``).  The batch modes
+themselves are held on a card by ``tests/test_torch_cuda.py``."""
 
 import functools
 import importlib.util
@@ -416,28 +414,6 @@ def test_batch_digit_flag_names_instance():
     with pytest.raises(ValueError, match="beyond.*in instance 2"):
         u1_cuda.raise_if_flagged(torch.tensor([0, 0, 1], dtype=torch.int32),
                                  digits % p.q, p.q, n_limbs, batched=True)
-
-
-# ---------------------------------------------------------------------------
-# on a CUDA machine: each batch mode against its plain version
-# ---------------------------------------------------------------------------
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("q", [Q_SMALL, Q_BIG], ids=["small_q", "big_q"])
-@pytest.mark.parametrize("kernel", KERNELS)
-def test_cuda_batch_modes_match_plain(q, kernel):
-    """Whole and as shard 0 and 2 of 4, at kappa = 16 and config 1."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    for p in (_small_params(q), LabradorParams(
-            n=2, r=2, **(BIG if q == Q_BIG else {}))):
-        x = Batch(p, 0xCA, "cuda")
-        fn, plain = _calls(x, False)[kernel], _calls(x, True)[kernel]
-        for rng in (None, (4, 0), (4, 2)):
-            got = fn(x.crs, None, rng)
-            assert torch.equal(got, plain(x.crs, None, rng)), (p.kappa, rng)
-            for b in range(B):
-                assert torch.equal(got[b], fn(x.crs[b], b, rng))
 
 
 if __name__ == "__main__":

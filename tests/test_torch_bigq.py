@@ -405,8 +405,8 @@ def test_big_plain_takes_the_whole_operand_range():
 
 def test_big_plain_at_the_top_of_the_range():
     """The same at the largest prime below 2^33, where the kernels' products
-    of two centred values reach 2^64 (chip_smoke.py holds the kernel there
-    against this plain version)."""
+    of two centred values reach 2^64 (tests/test_torch_cuda.py holds the
+    kernel there against this plain version on a card)."""
     p = TParams(**{**R_KW, "q_start": (1 << 33) - 9})
     assert p.q == (1 << 33) - 9
     _check_plain_operand_range(p)
@@ -599,7 +599,7 @@ def test_bigq_golden_file_matches_jax(jax_run, monkeypatch):
 
 
 def test_bigq_port_cli_flow_matches_golden(torch_run):
-    """What chip_smoke.py holds the card's run against."""
+    """What tests/test_torch_cuda.py holds the card's run against."""
     g = json.loads(GOLDEN.read_text())["base"]
     proof = torch_run["proof"]
     assert tstructs.transcript_sha256(proof, Q) == g["transcript_sha256"]

@@ -8,8 +8,8 @@ bincode SHA-256 and fs size.  The port's folded residual is 0 and a
 tampered witness breaks it, its dense relation agrees with its fold, and
 its folded proof, and the JAX package's carried across, verify.  Also
 keeps the ``recursion`` part of ``labrador_tpu_torch/golden/config1_bigq.json``
-equal to what the JAX package gives; ``chip_smoke.py`` holds the card's
-run against it.
+equal to what the JAX package gives; ``tests/test_torch_cuda.py`` holds
+the card's run against it.
 
 The JAX side pays one base proof, one fold and one folded prove, all
 module-scoped.  Its folded verify (about a minute here) is left out: the
@@ -187,7 +187,7 @@ def test_bigq_recursion_golden_matches_jax(jx, monkeypatch):
 
 
 def test_bigq_port_flow_matches_golden(tx):
-    """What chip_smoke.py holds the card's run against."""
+    """What tests/test_torch_cuda.py holds the card's run against."""
     g = json.loads(GOLDEN.read_text())["recursion"]
     assert tstructs.transcript_sha256(tx["proof"], Q) == \
         g["base"]["transcript_sha256"]

@@ -9,9 +9,8 @@ moduli.  The CRS: ``MaterializedCRS.create_chacha`` at config 1 (n = r =
 class's table, key and every fetcher, reads beyond the table (0) and a C
 read past ``_off_d`` included.  Tolerance: exact.  No JAX compile: the JAX
 table is host C++ and ``jnp.asarray``, its fetchers eager slices and
-gathers.  On a card (no JAX there), ``python -m pytest
-tests/test_torch_chacha.py -m cuda --noconftest`` holds the kernels' table
-modes against their plain versions.
+gathers.  The kernels' table modes are held on a card by
+``tests/test_torch_cuda.py``.
 """
 
 import numpy as np
@@ -171,61 +170,3 @@ def test_wrappers_dispatch_on_the_crs():
     with pytest.raises(ValueError, match="int32"):
         entry_table(MaterializedCRS(coeffs=table.coeffs.long(), key=(1, 2),
                                     params=P), cpu)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["config1", "2^14"])
-def test_cuda_table_modes_match_plain(shape):
-    """On a card: each table mode (Ajtai, u1 B-term, C/D), whole and in a
-    range shard, bit-equal to its plain version on the same table; config
-    1 on its ChaCha table, 2^14 (n = r = 16, kappa = 256) on random
-    residues of the layout's size (exactness does not depend on ChaCha
-    values)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    from labrador_tpu_torch.ops import ajtai_cuda, cd_cuda, u1_cuda
-    from labrador_tpu_torch.protocol import _tri_stream
-    if shape == "config1":
-        p = P
-        crs = MaterializedCRS.create_chacha(p, SEED, "cuda")
-    else:
-        p = LabradorParams(n=16, r=16, kappa_override=256)
-        total = _used_intervals(p)[-1][1]
-        gen = torch.Generator("cuda").manual_seed(11)
-        crs = MaterializedCRS(
-            coeffs=torch.randint(0, p.q, (total,), dtype=torch.int32,
-                                 device="cuda", generator=gen),
-            key=(1, 2), params=p)
-    rng = np.random.default_rng(3)
-
-    def t(x):
-        return torch.from_numpy(np.asarray(x, np.int64)).to("cuda")
-
-    def digits(base, shape_):
-        return t(rng.integers(-(base // 2), base // 2 + 1, shape_) % p.q)
-
-    w = t(rng.integers(0, p.q, (p.r, p.n, p.d)))
-    t_dig = digits(p.b_1, (p.t_1, p.r, p.kappa, p.d))
-    h_str = _tri_stream(digits(p.b_1, (p.t_1, p.r, p.r, p.d)), p)
-    g_str = _tri_stream(digits(p.b_2, (p.t_2, p.r, p.r, p.d)), p)
-    per, m = p.kappa // 4, h_str.shape[0] * p.t_1 // 4
-    cases = [
-        (ajtai_cuda.ajtai_commit, ajtai_cuda.ajtai_commit_plain, (w,)),
-        (ajtai_cuda.ajtai_commit, ajtai_cuda.ajtai_commit_plain,
-         (w, per, per)),
-        (u1_cuda.u1_bterm, u1_cuda.u1_bterm_plain, (t_dig,)),
-        (u1_cuda.u1_bterm, u1_cuda.u1_bterm_plain, (t_dig, per, per)),
-        (lambda c, h: cd_cuda.cd_sum(c, h, c._off_d, p.t_1),
-         lambda c, h: cd_cuda.cd_sum_plain(c, h, c._off_d, p.t_1), (h_str,)),
-        (lambda c, h: cd_cuda.cd_sum(c, h, c._off_d, p.t_1, 0, m, m),
-         lambda c, h: cd_cuda.cd_sum_plain(c, h, c._off_d, p.t_1, m, m),
-         (h_str,)),
-        (lambda c, g: cd_cuda.cd_sum(c, g, c._off_c, p.t_2, p.b_2),
-         lambda c, g: cd_cuda.cd_sum_plain(c, g, c._off_c, p.t_2), (g_str,)),
-    ]
-    mods = (ajtai_cuda, u1_cuda, cd_cuda)
-    for mod in mods:
-        mod.KERNEL_TABLE.launches = 0
-    for kern, plain, args in cases:
-        assert torch.equal(kern(crs, *args), plain(crs, *args))
-    assert [m_.KERNEL_TABLE.launches for m_ in mods] == [2, 2, 3]

@@ -12,25 +12,24 @@ bincode stream, ``transcript_size_in_bytes`` and its ``fs=True`` size, and
 ``fs=True`` size, that report and ``fs_challenge_report``.
 
 The Tier-1 test proves both on the CPU in the port and compares;
-``chip_smoke.py`` does the same on the card.  The ``slow`` test
+``tests/test_torch_cuda.py`` does the same on the card.  The ``slow`` test
 regenerates the record from the JAX package in a subprocess (minutes
 here); write the file with
 
     python tests/test_torch_chacha_golden.py --write
 """
 
-import hashlib
 import json
 import sys
 from pathlib import Path
 
-import numpy as np
 import pytest
+
+from port_golden import CHACHA_CFG as CFG
+from port_golden import port_chacha_record, record, table_sha256
 
 ROOT = Path(__file__).resolve().parent.parent
 GOLDEN = ROOT / "labrador_tpu_torch" / "golden" / "config1_chacha.json"
-CFG = {"n": 2, "r": 2, "base_seed": bytes(range(32)).hex(),
-       "key_seed": 20240807}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -42,20 +41,6 @@ def _two_torch_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
-
-
-def table_sha256(coeffs) -> str:
-    return hashlib.sha256(np.ascontiguousarray(coeffs, "<i4")
-                          .tobytes()).hexdigest()
-
-
-def _record(sha: str, sizes: dict, report: dict, fs_report=None) -> dict:
-    out = {"transcript_sha256": sha, **sizes,
-           "verify_report": {k: bool(v) for k, v in report.items()}}
-    if fs_report is not None:
-        out["fs_challenge_report"] = {k: bool(v)
-                                      for k, v in fs_report.items()}
-    return out
 
 
 def jax_chacha_golden(cfg: dict) -> dict:
@@ -81,48 +66,15 @@ def jax_chacha_golden(cfg: dict) -> dict:
     f64 = dict(norm_mode="f64_reference")
     return {
         "config": cfg, "table_sha256": table_sha256(crs.coeffs),
-        "prove": _record(
+        "prove": record(
             digest(proof, p.q),
             {"transcript_size_in_bytes":
              structs.transcript_size_in_bytes(proof, p.q),
              "transcript_size_in_bytes_fs":
              structs.transcript_size_in_bytes(proof, p.q, fs=True)},
             verifier.verify_report(p, state, proof, crs, **f64)),
-        "prove_fs": _record(
+        "prove_fs": record(
             digest(proof_fs, p.q),
-            {"transcript_size_in_bytes_fs":
-             structs.transcript_size_in_bytes(proof_fs, p.q, fs=True)},
-            verifier.verify_report(p, state, proof_fs, crs, **f64),
-            verifier.fs_challenge_report(p, state, proof_fs, crs))}
-
-
-def port_chacha_record(device="cpu") -> dict:
-    """The same record from the port (what ``chip_smoke.py`` also
-    computes on the card)."""
-    from labrador_tpu_torch import keys, prover, sampling, structs, verifier
-    from labrador_tpu_torch.crs import MaterializedCRS
-    from labrador_tpu_torch.params import LabradorParams
-
-    p = LabradorParams(n=CFG["n"], r=CFG["r"])
-    crs = MaterializedCRS.create_chacha(p, bytes.fromhex(CFG["base_seed"]),
-                                        device=device)
-    kw, ks, kv = keys.split(keys.key(CFG["key_seed"]), 3)
-    witness = sampling.generate_witness(kw, p, device)
-    state = structs.generate_state(ks, witness, p)
-    proof = prover.prove(p, witness, state, crs, kv)
-    proof_fs = prover.prove_fs(p, witness, state, crs)
-    f64 = dict(norm_mode="f64_reference")
-    return {
-        "config": CFG, "table_sha256": table_sha256(crs.coeffs.cpu()),
-        "prove": _record(
-            structs.transcript_sha256(proof, p.q),
-            {"transcript_size_in_bytes":
-             structs.transcript_size_in_bytes(proof, p.q),
-             "transcript_size_in_bytes_fs":
-             structs.transcript_size_in_bytes(proof, p.q, fs=True)},
-            verifier.verify_report(p, state, proof, crs, **f64)),
-        "prove_fs": _record(
-            structs.transcript_sha256(proof_fs, p.q),
             {"transcript_size_in_bytes_fs":
              structs.transcript_size_in_bytes(proof_fs, p.q, fs=True)},
             verifier.verify_report(p, state, proof_fs, crs, **f64),
@@ -159,7 +111,7 @@ def test_golden_file_matches_jax():
 
 if __name__ == "__main__":
     sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
-    record = jax_chacha_golden(CFG)
+    golden = jax_chacha_golden(CFG)
     if "--write" in sys.argv:
-        GOLDEN.write_text(json.dumps(record, indent=1, sort_keys=True) + "\n")
-    print(json.dumps(record, sort_keys=True))
+        GOLDEN.write_text(json.dumps(golden, indent=1, sort_keys=True) + "\n")
+    print(json.dumps(golden, sort_keys=True))

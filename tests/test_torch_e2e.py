@@ -2,8 +2,9 @@
 verify the same config-1 instance (carried across with ``interop``), and
 must agree exactly — every transcript field, both proof-size metrics, the
 verify_report dict, the tamper rejections of tests/test_e2e.py.  Also
-keeps ``labrador_tpu_torch/golden/config1.json`` (what chip_smoke.py checks
-on the card, where there is no JAX) equal to what the JAX package gives."""
+keeps ``labrador_tpu_torch/golden/config1.json`` (what
+tests/test_torch_cuda.py checks on the card, where there is no JAX) equal
+to what the JAX package gives."""
 
 import json
 from pathlib import Path

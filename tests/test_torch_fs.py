@@ -16,9 +16,8 @@
   the JAX package wrote.
 * The stream kernel (``csrc/sha_stream.cu``): its constants against
   ``ops/sha256``'s, and the CPU route of ``stream_device`` that never
-  reaches it.  On a CUDA machine, the kernel against hashlib; a machine
-  without JAX runs those tests alone:
-  ``python -m pytest tests/test_torch_fs.py -m cuda --noconftest``.
+  reaches it.  The kernel itself is held against hashlib on a card by
+  ``tests/test_torch_cuda.py``.
 """
 
 import hashlib
@@ -28,27 +27,23 @@ import numpy as np
 import pytest
 import torch
 
-try:
-    import jax
-    import jax.numpy as jnp
+import jax
+import jax.numpy as jnp
 
-    from labrador_tpu import prover as jprover
-    from labrador_tpu import sampling as jsampling
-    from labrador_tpu import structs as jstructs
-    from labrador_tpu import verifier as jverifier
-    from labrador_tpu.crs import CRS as JCRS
-    from labrador_tpu.ops import sha256 as jsha
-    from labrador_tpu.ops import zq as jzq
-    from labrador_tpu.ops.sha_prng import wrap_digest
-except ImportError:     # a card machine: only the `cuda` tests run there
-    pass
+from labrador_tpu import prover as jprover
+from labrador_tpu import sampling as jsampling
+from labrador_tpu import structs as jstructs
+from labrador_tpu import verifier as jverifier
+from labrador_tpu.crs import CRS as JCRS
+from labrador_tpu.ops import sha256 as jsha
+from labrador_tpu.ops import zq as jzq
+from labrador_tpu.ops.sha_prng import wrap_digest
 from labrador_tpu.params import LabradorParams
 
 from labrador_tpu_torch import keys, prover, sampling, structs, verifier
 from labrador_tpu_torch.cli import CRS_SEED_MULT, run_flow
 from labrador_tpu_torch.ops import cuda_lib, sha256, sha_cuda, sha_prng
 from labrador_tpu_torch.ops.modmath import sum_sq_u64
-from labrador_tpu_torch.params import LabradorParams as TParams
 
 SEED = 42
 P = LabradorParams(n=2, r=2)
@@ -227,47 +222,6 @@ def test_stream_device_cpu_takes_plain_route(monkeypatch):
     assert calls and sha_cuda.KERNEL.launches == launches
     np.testing.assert_array_equal(
         got.numpy(), sha_prng.stream_host(KEYS3, 17).astype(np.int64))
-
-
-def _cuda_stream(ks: list, n_words: int) -> torch.Tensor:
-    """stream_device on the card, required to go through one launch of the
-    stream kernel."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    launches = sha_cuda.KERNEL.launches
-    got = sha_prng.stream_device(ks, n_words, "cuda")
-    torch.cuda.synchronize()
-    assert sha_cuda.KERNEL.launches == launches + 1
-    return got.cpu()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_words", [1, 7, 8, 9, 17, 1001])
-@pytest.mark.parametrize("n_keys", [1, 3, 16])
-def test_cuda_stream_matches_host(n_keys, n_words):
-    """The stream kernel == stream_host (hashlib) at partial and whole
-    final blocks, one key and several."""
-    ks = KEYS16[:n_keys]
-    np.testing.assert_array_equal(
-        _cuda_stream(ks, n_words).numpy(),
-        sha_prng.stream_host(ks, n_words).astype(np.int64))
-
-
-@pytest.mark.cuda
-def test_cuda_stream_jl_shape():
-    """At the 2^14 JL shape (16 keys x 256 x 1,024 words, 524,288 blocks)
-    the kernel == hashlib, and sample_jl_matrices on CUDA ShaKeys == the
-    CPU route's."""
-    n = 256 * 16 * 64
-    np.testing.assert_array_equal(
-        _cuda_stream(KEYS16, n).numpy(),
-        sha_prng.stream_host(KEYS16, n).astype(np.int64))
-    p = TParams(n=16, r=16)
-    ks = [keys.ShaKey(k) for k in KEYS16]
-    launches = sha_cuda.KERNEL.launches
-    got = sampling.sample_jl_matrices(ks, p, "cuda").cpu()
-    assert sha_cuda.KERNEL.launches == launches + 1
-    assert torch.equal(got, sampling.sample_jl_matrices(ks, p, "cpu"))
 
 
 def test_sha_key_derivations_match_jax():
@@ -521,4 +475,3 @@ def test_load_transcript_of_jax_big_q_file(big_run, tmp_path):
     for name in tr.__dataclass_fields__:
         a, b = getattr(got, name), getattr(tr, name)
         assert a.dtype == b.dtype and torch.equal(a, b), name
-

@@ -12,9 +12,9 @@ shape too.  The folded proof's interactive size (10 MB of zlib-9) is left
 out: its digest fixes those bytes.
 
 The Tier-1 tests run the port's CLI flows on the CPU against the file;
-``chip_smoke.py`` runs them on the card.  The ``slow`` test regenerates
-the record from the JAX package in a subprocess (a few minutes here);
-write the file with
+``tests/test_torch_cuda.py`` runs them on the card.  The ``slow`` test
+regenerates the record from the JAX package in a subprocess (a few
+minutes here); write the file with
 
     python tests/test_torch_fs_golden.py --write
 """
@@ -25,12 +25,11 @@ from pathlib import Path
 
 import pytest
 
+from port_golden import FS_CFG as CFG
+from port_golden import folded_shape, port_fs_flow, record
+
 ROOT = Path(__file__).resolve().parent.parent
 GOLDEN = ROOT / "labrador_tpu_torch" / "golden" / "config1_fs.json"
-
-CFG = {"n": 2, "r": 2, "kappa": 0, "seed": 42,
-       "crs_seed": 42 * 0x9E3779B97F4A7C15 % 2**64,
-       "folded_crs_seed": 42 ^ 0xF01D}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -44,20 +43,6 @@ def _one_torch_thread():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
-
-
-def _record(sha: str, fs_size: int, report: dict, fs_report=None) -> dict:
-    out = {"transcript_sha256": sha, "transcript_size_in_bytes_fs": fs_size,
-           "verify_report": {k: bool(v) for k, v in report.items()}}
-    if fs_report is not None:
-        out["fs_challenge_report"] = {k: bool(v)
-                                      for k, v in fs_report.items()}
-    return out
-
-
-def _folded_shape(p) -> dict:
-    return {"n": p.n, "r": p.r, "k_count": p.k_count, "kappa": p.kappa,
-            "beta_override": p.beta_override}
 
 
 def jax_fs_golden(cfg: dict) -> dict:
@@ -86,50 +71,29 @@ def jax_fs_golden(cfg: dict) -> dict:
         state = structs.generate_state(ks, witness, p)
         proof = jax.device_get(prover.prove_fs(p, witness, state, crs,
                                                decomp_mode=mode))
-        rec = _record(digest(proof, p.q),
-                      structs.transcript_size_in_bytes(proof, p.q, fs=True),
-                      verifier.verify_report(p, state, proof, crs,
-                                             decomp_mode=mode),
-                      verifier.fs_challenge_report(p, state, proof, crs))
+        rec = record(digest(proof, p.q),
+                     {"transcript_size_in_bytes_fs":
+                      structs.transcript_size_in_bytes(proof, p.q, fs=True)},
+                     verifier.verify_report(p, state, proof, crs,
+                                            decomp_mode=mode),
+                     verifier.fs_challenge_report(p, state, proof, crs))
         if not recursive:
             return rec
         p2, w2, s2, _ = recursion.fold(p, state, proof, crs)
         crs2 = CRS.create(p2, seed=cfg["folded_crs_seed"])
         proof2 = jax.device_get(prover.prove(
             p2, w2, s2, crs2, jax.random.fold_in(kv, 1), decomp_mode="exact"))
-        folded = _record(
+        folded = record(
             digest(proof2, p2.q),
-            structs.transcript_size_in_bytes(proof2, p2.q, fs=True),
+            {"transcript_size_in_bytes_fs":
+             structs.transcript_size_in_bytes(proof2, p2.q, fs=True)},
             verifier.verify_report(p2, s2, proof2, crs2,
                                    decomp_mode="exact"))
-        return {"base": rec, "folded": {**_folded_shape(p2), **folded}}
+        return {"base": rec, "folded": {**folded_shape(p2), **folded}}
 
     return {"config": cfg, "small_q": fs_flow(False, False),
             "big_q": fs_flow(True, False),
             "recursion": fs_flow(False, True)}
-
-
-def port_fs_flow(big_q: bool, recursive: bool, device="cpu") -> dict:
-    """The port's CLI flow (``run_flow(fs=True)``) as the same record."""
-    from labrador_tpu_torch import structs
-    from labrador_tpu_torch.cli import run_flow
-
-    res = run_flow(CFG["n"], CFG["r"], CFG["kappa"], CFG["seed"], device,
-                   recursion=recursive, big_q=big_q, fs=True)
-    p, proof = res.params, res.proof
-    fs_keys = [k for k in res.report if k.startswith("fs_")]
-    rec = _record(structs.transcript_sha256(proof, p.q),
-                  structs.transcript_size_in_bytes(proof, p.q, fs=True),
-                  {k: v for k, v in res.report.items() if k not in fs_keys},
-                  {k: res.report[k] for k in fs_keys})
-    if not recursive:
-        return rec
-    f = res.folded
-    folded = _record(structs.transcript_sha256(f.proof, f.params.q),
-                     structs.transcript_size_in_bytes(f.proof, f.params.q,
-                                                      fs=True), f.report)
-    assert f.residual == 0
-    return {"base": rec, "folded": {**_folded_shape(f.params), **folded}}
 
 
 @pytest.mark.parametrize("mode", ["small_q", "big_q", "recursion"])
@@ -165,7 +129,7 @@ def test_golden_file_matches_jax():
 
 if __name__ == "__main__":
     sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
-    record = jax_fs_golden(CFG)
+    golden = jax_fs_golden(CFG)
     if "--write" in sys.argv:
-        GOLDEN.write_text(json.dumps(record, indent=1, sort_keys=True) + "\n")
-    print(json.dumps(record, sort_keys=True))
+        GOLDEN.write_text(json.dumps(golden, indent=1, sort_keys=True) + "\n")
+    print(json.dumps(golden, sort_keys=True))

@@ -350,24 +350,37 @@ def test_200_challenges_match():
 # import boundary
 # ---------------------------------------------------------------------------
 
-def _imports(path: Path):
+def _imports(path: Path, seen=None):
+    """The modules ``path`` imports, anywhere in it, and those that the
+    modules of ``tests/`` it imports import in turn."""
+    seen = set() if seen is None else seen
+    seen.add(path)
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            for a in node.names:
-                yield a.name
+            names = [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module or ""
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            yield name
+            sibling = ROOT / "tests" / f"{name}.py"
+            if sibling.exists() and sibling not in seen:
+                yield from _imports(sibling, seen)
 
 
 @pytest.mark.parametrize(
     "path", sorted((ROOT / "labrador_tpu_torch").rglob("*.py"))
-    + [ROOT / "chip_smoke.py", ROOT / "kernel_times.py",
-       ROOT / "bhat_parts.py"],
+    + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+       ROOT / "tests" / "test_torch_sharded.py",
+       ROOT / "tests" / "port_golden.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
-    """No module of the port, and none of chip_smoke.py, kernel_times.py
-    and bhat_parts.py, imports JAX or any module of the JAX package."""
+    """No module of the port, none of chip_smoke.py, neither test file
+    that runs on the card (the card's machine has no JAX) and no module of
+    ``tests/`` that they import imports JAX or any module of the JAX
+    package."""
     for mod in _imports(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "flax", "labrador_tpu"), \

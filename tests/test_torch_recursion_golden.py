@@ -4,9 +4,9 @@ exact digits, fold, the folded instance's own CRS and key, prove, verify).
 The folded proof's interactive size (zlib-9 of its bincode, 10.5 MB after
 compression) is left out: its transcript SHA-256 fixes those bytes already, and
 tests/test_torch_recursion.py holds both size metrics at a smaller fold.
-``chip_smoke.py`` holds the port's ``-R`` run on the card against this
-file, where there is no JAX; tests/test_torch_recursion.py holds the port
-against the JAX package on the CPU, field by field."""
+``tests/test_torch_cuda.py`` holds the port's ``-R`` run on the card
+against this file, where there is no JAX; tests/test_torch_recursion.py
+holds the port against the JAX package on the CPU, field by field."""
 
 import json
 from pathlib import Path

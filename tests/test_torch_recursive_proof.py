@@ -185,23 +185,6 @@ def test_fold_is_its_statement_and_witness_halves(run):
     assert recursion.folded_residual(fst, w2, p2) == 0
 
 
-def test_alpha_expansion_counter(run):
-    """Each ``phi_alpha_modq`` calls the three contractions (C and D
-    apart) and expands A, the B matrices and the C/D columns once."""
-    p = run["p"]
-    _, _, fst, lay = recursion.fold(
-        p, run["states"][0], prover.prove(
-            p, run["pool"].witnesses[0], run["states"][0], run["crs"],
-            run["key"], decomp_mode="exact"), run["crs"], MU, KAPPA_NEW)
-    n_tri = p.r * (p.r + 1) // 2
-    want = p.d * (p.kappa * p.n + p.r * p.t_1 * p.kappa_1 * p.kappa
-                  + n_tri * (p.t_2 + p.t_1) * p.kappa_2)
-    c0 = dataclasses.replace(recursion.ALPHA_EXPANSION)
-    fst.phi_alpha_modq(torch.ones((lay.k_new, p.d), dtype=torch.int64))
-    c1 = recursion.ALPHA_EXPANSION
-    assert (c1.calls - c0.calls, c1.entries - c0.entries) == (4, want)
-
-
 @pytest.mark.parametrize("seed", [0, 42, 2**31 + 11, 2**63 + 5])
 def test_folded_crs_is_the_cli_seed_rule(seed):
     p = LabradorParams(**CONFIG["params"])

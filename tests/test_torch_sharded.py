@@ -20,8 +20,10 @@ torch thread a rank) runs every sharded case once for the module
 
 Without processes: the range modes' plain versions of kernels 2-4 for 1-4
 shards at both moduli, concatenated (Ajtai) or summed mod q (u1, C/D),
-equal to the unranged ones.  On a CUDA machine, each range mode of the
-kernels equals its plain version at every shard index.
+equal to the unranged ones.  On a CUDA machine (``cuda``-marked; the
+range modes themselves are held in ``tests/test_torch_cuda.py``), a
+world of 4 ranks sharing cuda:0 proves config 1, 2^14 and 2^20 sharded
+against single-rank runs on the card.
 
 Parity with the JAX package comes from the golden files, which the JAX
 package wrote (``labrador_tpu_torch/golden/``), and from
@@ -40,7 +42,7 @@ import torch
 from labrador_tpu_torch import protocol, prover, structs, verifier
 from labrador_tpu_torch.cli import make_instance, make_params
 from labrador_tpu_torch.crs import CRS
-from labrador_tpu_torch.ops import ajtai_cuda, cd_cuda, u1_cuda
+from labrador_tpu_torch.ops import ajtai_cuda, cd_cuda, cuda_lib, u1_cuda
 from labrador_tpu_torch.params import LabradorParams
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -361,46 +363,138 @@ def test_ranges_refused_outside(unranged):
                              10, 100)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("q_start", [0, (1 << 32) - 1])
-def test_cuda_range_modes_match_plain(q_start):
-    """Each range mode of kernels 2-4 on the card at config 1 (kappa =
-    128) with 4 shards, at every shard index, bit-equal to its plain
-    version, and the shards composed equal to the unranged kernel."""
+# ---------------------------------------------------------------------------
+# on a CUDA machine: a world of 4 ranks sharing cuda:0 over gloo
+# ---------------------------------------------------------------------------
+
+# (cell, n, r, kappa, modulus, oracle, mesh (n_dp, n_rows)): config 1 on a
+# dp 2 x rows 2 mesh against the golden digests, 2^14 (BASELINE.json
+# config 3) on rows 4 and BASELINE.json config 4 (2^20, big q) on rows 2
+# against single-rank runs on the card
+CARD_RUNS = ([("config1", 2, 2, 0, m, o, (2, 2)) for m, o in PROVE_CASES]
+             + [("2p14", 16, 16, 256, m, o, (1, 4)) for m, o in PROVE_CASES]
+             + [("config4", 128, 128, 256, "big", "interactive", (1, 2))])
+
+
+def _commit_launches() -> dict:
+    """Launches so far of kernels 2-4 in each mode, by name."""
+    return {v.name: v.launches for m in (ajtai_cuda, u1_cuda, cd_cuda)
+            for v in vars(m).values() if isinstance(v, cuda_lib.KernelInfo)}
+
+
+def _rank_card_runs() -> dict:
+    """One rank of the world on the card: every run of CARD_RUNS on its
+    mesh (ranks beyond a mesh skip its runs): this rank's launches of
+    kernels 2-4 in the sharded prove, the batch's digests, and the
+    sharded verifier's reports on the valid and the tampered proof
+    (interactive runs beyond config 1)."""
+    from labrador_tpu_torch.parallel.mesh import make_mesh
+    from labrador_tpu_torch.parallel.sharded import (make_sharded_prover,
+                                                     make_sharded_verifier,
+                                                     stack, take)
+
+    meshes = {shape: make_mesh(*shape, device="cuda")
+              for shape in dict.fromkeys(run[-1] for run in CARD_RUNS)}
+    out = {}
+    for run in CARD_RUNS:
+        cell, n, r, kappa, modulus, oracle, shape = run
+        mesh = meshes[shape]
+        if not mesh.member:
+            continue
+        p = make_params(n, r, kappa, False, modulus == "big")
+        mode = "exact" if modulus == "big" else "reference"
+        insts = [make_instance(p, SEED + b, mesh.device)
+                 for b in range(mesh.n_dp)]
+        fn = make_sharded_prover(p, mesh, mode, oracle)
+        before = _commit_launches()
+        tr = fn(torch.stack([i[0] for i in insts]),
+                stack([i[1] for i in insts]), [i[2].key for i in insts],
+                [i[3] for i in insts])
+        torch.cuda.synchronize()
+        res = {"launches": {k: v - before[k]
+                            for k, v in _commit_launches().items()},
+               "digests": [structs.transcript_sha256(take(tr, b), p.q)
+                           for b in range(mesh.n_dp)]}
+        if oracle == "interactive" and cell != "config1":
+            vfn = make_sharded_verifier(p, mesh, mode)
+            st, crs, proof = insts[0][1], insts[0][2], take(tr, 0)
+            res["report"] = vfn(st, proof, crs.key)
+            res["report_tampered"] = vfn(st, _tampered(proof, p.q), crs.key)
+        out[run] = res
+        del insts, tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def card_world(store_dir: str):
+    """The single-rank references of CARD_RUNS on the card (config 1's
+    instance 0: its golden digest), then the world's results in rank
+    order (the ranks rendezvous through files in ``store_dir``)."""
+    from labrador_tpu_torch.parallel.multihost import spawn_local
+
+    refs = {}
+    for run in CARD_RUNS:
+        cell, n, r, kappa, modulus, oracle, (n_dp, _) = run
+        p = make_params(n, r, kappa, False, modulus == "big")
+        mode = "exact" if modulus == "big" else "reference"
+        ref = refs[run] = {"digests": []}
+        for b in range(n_dp):
+            if cell == "config1" and b == 0:
+                ref["digests"].append(_golden_digest(modulus, oracle))
+                continue
+            w, st, crs, kv = make_instance(p, SEED + b, "cuda")
+            proof = (prover.prove(p, w, st, crs, kv, mode)
+                     if oracle == "interactive"
+                     else prover.prove_fs(p, w, st, crs, mode))
+            ref["digests"].append(structs.transcript_sha256(proof, p.q))
+            if oracle == "interactive" and cell != "config1":
+                ref["report"] = verifier.verify_report(p, st, proof, crs,
+                                                       mode)
+                ref["report_tampered"] = verifier.verify_report(
+                    p, st, _tampered(proof, p.q), crs, mode)
+            del w, st, proof
+        torch.cuda.empty_cache()
+    cuda_lib.load()              # built here: the ranks load it
+    ranks = spawn_local(_rank_card_runs, WORLD, threads=2, timeout_s=900,
+                        store_dir=store_dir)
+    return refs, ranks
+
+
+def check_card_run(refs: dict, ranks: list, run) -> None:
+    """Ranks sharing cuda:0 over gloo (NCCL refuses two ranks on one
+    device) at full width: every rank's transcripts equal the single-rank
+    ones (config 1: instance 0's golden digest), its sharded verifier's
+    reports too, a tampered u_1 failing check 19 alone; every rank
+    launches the range modes of the run's modulus and no other mode."""
+    ref, (n_dp, n_rows) = refs[run], run[-1]
+    seen = [out[run] for out in ranks if run in out]
+    assert len(seen) == n_dp * n_rows
+    assert len(set(ref["digests"])) == n_dp
+    ranged = [(m.KERNEL_RANGE_BIG if run[4] == "big" else m.KERNEL_RANGE).name
+              for m in (ajtai_cuda, u1_cuda, cd_cuda)]
+    for res in seen:
+        assert res["digests"] == ref["digests"]
+        launched = res["launches"]
+        assert all(launched[k] for k in ranged), launched
+        assert not any(n for k, n in launched.items() if k not in ranged), \
+            launched
+        if "report" in ref:
+            assert res["report"] == ref["report"] and ref["report"]["all"]
+            bad = res["report_tampered"]
+            assert bad == ref["report_tampered"]
+            assert not bad["c19_u1"] and not bad["all"] and bad["c20_u2"]
+
+
+@pytest.fixture(scope="module")
+def card_results(tmp_path_factory):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    extra = {"q_start": q_start, "exact_digits": True} if q_start else {}
-    p = LabradorParams(n=2, r=2, **extra)
-    q = p.q
-    crs = CRS.create(p, 0x5EED)
-    rng = np.random.default_rng(11)
+    return card_world(str(tmp_path_factory.mktemp("card")))
 
-    def digits(base: int, shape):
-        x = rng.integers(-(base // 2), base // 2 + 1, shape)
-        return torch.from_numpy(x if q > Q_SMALL else x % q).to("cuda")
 
-    w = torch.from_numpy(rng.integers(0, q, (p.r, p.n, p.d))).to("cuda")
-    t_dig = digits(p.b_1, (p.t_1, p.r, p.kappa, p.d))
-    g_str = protocol._tri_stream(digits(p.b_2, (p.t_2, p.r, p.r, p.d)), p)
-    per = p.kappa // 4
-    t_parts, b_parts, c_parts = [], [], []
-    for i in range(4):
-        t = ajtai_cuda.ajtai_commit(crs, w, i * per, per)
-        assert torch.equal(t, ajtai_cuda.ajtai_commit_plain(crs, w, i * per,
-                                                            per))
-        b = u1_cuda.u1_bterm(crs, t_dig, i * per, per)
-        assert torch.equal(b, u1_cuda.u1_bterm_plain(crs, t_dig, i * per,
-                                                     per))
-        l0, n = protocol._stream_shard(g_str.shape[0] * p.t_2,
-                                       protocol.AxisCtx(None, 4, i))
-        c = cd_cuda.cd_sum(crs, g_str, crs._off_c, p.t_2, p.b_2, l0, n)
-        assert torch.equal(c, cd_cuda.cd_sum_plain(crs, g_str, crs._off_c,
-                                                   p.t_2, l0, n))
-        t_parts.append(t)
-        b_parts.append(b)
-        c_parts.append(c)
-    torch.cuda.synchronize()
-    assert torch.equal(torch.cat(t_parts, 1), ajtai_cuda.ajtai_commit(crs, w))
-    assert torch.equal(sum(b_parts) % q, u1_cuda.u1_bterm(crs, t_dig))
-    assert torch.equal(sum(c_parts) % q,
-                       cd_cuda.cd_sum(crs, g_str, crs._off_c, p.t_2, p.b_2))
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", CARD_RUNS, ids=[
+    f"{c}-{m}-{o}-dp{s[0]}xrows{s[1]}" for c, *_, m, o, s in CARD_RUNS])
+def test_card_world_matches_single_rank(card_results, run):
+    """``check_card_run`` of each run of the world on the card."""
+    check_card_run(*card_results, run)

@@ -22,9 +22,8 @@ and ``csrc/cd.cu``), modelled on the CPU.
 * The wrappers' digit-range check raises for a digit beyond its limbs,
   the C/D wrapper's too.
 
-On a CUDA machine, also the kernel in each of its digit-limb modes
-against the plain version, at the folded kappa_1 = 16 shape with digits
-at the largest magnitude the limbs hold.
+The kernel in each of its digit-limb modes is held on a card by
+``tests/test_torch_cuda.py``.
 """
 
 import numpy as np
@@ -381,27 +380,3 @@ def test_launch_shape_covers_stream(rows, L):
     assert groups == 1 or tiles <= 4
     assert (splits - 1) * per < L <= splits * per
     assert -(-rows // (8 * tiles)) * tiles * 8 >= rows
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("q, b_1", [(Q_SMALL, 9), (Q_SMALL, 8191),
-                                    (Q_BIG, 2), (Q_BIG, 1625),
-                                    (Q_BIG, 65536), (Q_TOP, 1 << 24)])
-def test_cuda_u1_digit_modes_match_plain(q, b_1):
-    """Each digit-limb mode of the kernel at the folded kappa_1 = 16 shape,
-    digits at the largest magnitude the limbs hold."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    p = LabradorParams(n=13, r=15, q=q, k_count=51, l_count=1,
-                       kappa_override=16, exact_digits=True)
-    object.__setattr__(p, "b_1", b_1)         # the digit-limb mode
-    n_limbs = u1_cuda.digit_limbs(b_1)
-    top = min(b_1 // 2, u1_cuda.limb_cover(n_limbs))
-    rng = np.random.default_rng(b_1)
-    x = rng.choice([-top, top, 0, 1], (p.t_1, p.r, p.kappa, p.d))
-    t_dig = torch.from_numpy(x if q > Q_SMALL else x % q).to("cuda")
-    crs = CRS.create(p, SEED)
-    got = u1_cuda.u1_bterm(crs, t_dig)
-    want = u1_cuda.u1_bterm_plain(crs, t_dig)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
